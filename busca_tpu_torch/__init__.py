@@ -1,0 +1,21 @@
+"""busca_tpu_torch — the PyTorch + CUDA port of busca_tpu for NVIDIA Hopper.
+
+The serving path of the canonical ByteTrack + BUSCA loop, module for module
+beside the JAX package it is diffed against:
+
+- ``ops``      — the crop-resize op (plain torch, and the CUDA kernel K1 in
+  ``csrc/crop_resize.cu``), host LAPJV assignment
+- ``models``   — GHOST ReID ResNet-50, decision Transformer, 3-D positional
+  encodings, the flax -> torch weight bridge
+- ``assoc``    — the association engine and the device crop bank
+- ``core``     — host (numpy) geometry and Kalman math
+- ``trackers`` — the BYTE strategy with the BUSCA third round
+- ``eval``     — synthetic sequences, MOT IO, CLEAR/IDF1/HOTA, the runner
+- ``config``   — reference-YAML config loading
+
+The package imports torch, numpy and scipy only.  Entry points take a
+``device`` that defaults to ``"cuda"`` and raise when CUDA is absent unless
+the caller asks for ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,122 @@
+"""Attention-exposing post-LN Transformer encoder (port of
+``busca_tpu.models.transformer``).
+
+The reference re-implements ``nn.TransformerEncoder{,Layer}`` so that
+per-layer attention weights can be returned (busca/custom_layers.py:9-70).
+Attention is written out as matmul + softmax, as the JAX module does, and
+the parameters keep the reference torch names and layouts
+(``self_attn.in_proj_weight [3d, d]``, ``self_attn.out_proj``,
+``linear1``/``linear2``, ``norm1``/``norm2``), so reference state dicts load
+with ``load_state_dict``.  Inference only: there is no dropout.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+
+# The JAX package's TorchLinear(features_in, features_out) keeps torch's
+# [out, in] weight layout; in torch that is nn.Linear itself.
+TorchLinear = nn.Linear
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """torch ``nn.MultiheadAttention`` (self-attention, batch_first)
+    numerics: packed qkv projection, ``1/sqrt(head_dim)`` scaling, per-head
+    attention weights returned."""
+
+    def __init__(self, d_model: int, nhead: int):
+        super().__init__()
+        self.d_model, self.nhead = d_model, nhead
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = TorchLinear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor):
+        b, l, d = x.shape
+        h = self.nhead
+        head_dim = d // h
+        qkv = nn.functional.linear(x, self.in_proj_weight, self.in_proj_bias)
+        q, k, v = qkv.chunk(3, dim=-1)
+
+        def split_heads(t):  # [B, L, d] -> [B, h, L, head_dim]
+            return t.reshape(b, l, h, head_dim).transpose(1, 2)
+
+        q, k, v = split_heads(q), split_heads(k), split_heads(v)
+        scale = 1.0 / torch.sqrt(
+            torch.tensor(head_dim, dtype=torch.float32, device=x.device)
+        )
+        logits = torch.matmul(q * scale, k.transpose(-1, -2))
+        weights = torch.softmax(logits, dim=-1)  # [B, h, L, L]
+        ctx = torch.matmul(weights, v)
+        ctx = ctx.transpose(1, 2).reshape(b, l, d)
+        return self.out_proj(ctx), weights
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder block (busca/custom_layers.py:30-41)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 activation: Optional[Callable] = None):
+        super().__init__()
+        self.self_attn = MultiHeadSelfAttention(d_model, nhead)
+        self.linear1 = TorchLinear(d_model, dim_feedforward)
+        self.linear2 = TorchLinear(dim_feedforward, d_model)
+        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.activation = activation if activation is not None else gelu_exact
+
+    def forward(self, src: torch.Tensor):
+        attn_out, weights = self.self_attn(src)
+        src = self.norm1(src + attn_out)
+        ff = self.linear2(self.activation(self.linear1(src)))
+        src = self.norm2(src + ff)
+        return src, weights
+
+
+class TransformerEncoder(nn.Module):
+    """Stack of encoder layers, returning per-layer attention maps."""
+
+    def __init__(self, num_layers: int, d_model: int, nhead: int,
+                 dim_feedforward: int, activation: Optional[Callable] = None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(d_model, nhead, dim_feedforward,
+                                    activation)
+            for _ in range(num_layers)
+        )
+
+    def forward(self, src: torch.Tensor, return_att: bool = False):
+        weights = []
+        out = src
+        for layer in self.layers:
+            out, w = layer(out)
+            weights.append(w)
+        if return_att:
+            return out, weights
+        return out
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU (torch ``nn.GELU()`` default)."""
+    return nn.functional.gelu(x)
+
+
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": gelu_exact,
+    "tanh": torch.tanh,
+    "silu": nn.functional.silu,
+}
+
+
+def get_activation(name: str) -> Callable:
+    if name not in ACTIVATIONS:
+        raise ValueError(
+            f"activation should be one of {sorted(ACTIVATIONS)}, not {name!r}"
+        )
+    return ACTIVATIONS[name]
