@@ -71,11 +71,13 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
 
 
 def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128)):
-    """A tracker for ``name``; this slice ports ``byte``."""
-    if name not in ("byte", "bytetrack"):
+    """A tracker for ``name``: ``byte`` (``bytetrack``) or ``transcenter``
+    (BYTE with the detector-feedback export)."""
+    if name not in ("byte", "bytetrack", "transcenter"):
         raise ValueError(f"tracker {name!r} is not ported yet (ROADMAP.md "
-                         "Queue 1, slices 2-4)")
+                         "Queue 1, slices 4-5)")
     from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
+    from busca_tpu_torch.trackers.transcenter import TransCenterByteTracker
 
     known = {f.name for f in dataclasses.fields(ByteTrackerConfig)}
     cfg = ByteTrackerConfig(
@@ -84,6 +86,8 @@ def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128)):
     cfg.crop_hw = crop_hw
     cfg.use_busca = engine is not None and tracker_kwargs.get("use_busca",
                                                               True)
+    if name == "transcenter":
+        return TransCenterByteTracker(cfg, engine)
     return ByteTracker(cfg, engine)
 
 

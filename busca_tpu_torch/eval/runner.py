@@ -19,6 +19,9 @@ class SequenceResult:
     num_frames: int
     results: List[Tuple[int, list, list, list]]
     track_time_s: float
+    # optional per-stage wall times (the reference's inference/track split,
+    # mot_evaluator.py:671-682), e.g. {"detector_s": ..., "tracker_s": ...}
+    stage_times: Optional[Dict[str, float]] = None
 
     @property
     def fps(self) -> float:

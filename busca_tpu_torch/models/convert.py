@@ -11,6 +11,8 @@ LayerNorm ``scale`` becomes ``weight``.
 
 :func:`load_checkpoint` reads a ``.npz`` of flattened flax variables or a
 reference ``.pth`` into a :class:`~busca_tpu_torch.models.busca.BuscaModel`.
+:func:`transcenter_state_dict_from_flax` does the same for TransCenter,
+whose port keeps the flax module names.
 """
 
 from __future__ import annotations
@@ -112,6 +114,30 @@ def resnet_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     return _convert(variables, _resnet_key)
 
 
+def transcenter_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """TransCenterDETR flax parameters (``{'params': ...}`` or the bare
+    tree, as numpy) -> the port's
+    :class:`~busca_tpu_torch.models.transcenter.TransCenterDETR` state dict.
+
+    The port keeps the flax module names, so a path maps to its ``.``-joined
+    key: a Dense kernel ``[in, out]`` becomes a Linear weight ``[out, in]``,
+    a convolution kernel HWIO becomes OIHW (a depthwise ``[3, 3, 1, C]``
+    becomes ``[C, 1, 3, 3]``), and a LayerNorm ``scale`` becomes ``weight``.
+    """
+    params = params.get("params", params)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        leaf = path[-1]
+        if leaf == "kernel":
+            value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        key = ".".join(path[:-1] + (leaf,))
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
 def load_into(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
     """Copy ``state_dict`` into ``model``.  Every parameter except the ReID
     classifier head must be present (the head is unused at inference and
@@ -134,14 +160,9 @@ def load_checkpoint(model: torch.nn.Module, path: str):
     ``busca_tpu.models.checkpoint.save_params_npz`` writes them) or a
     reference ``.pth`` into ``model``."""
     if path.endswith(".npz"):
-        tree: dict = {}
-        with np.load(path) as data:
-            for k in data.files:
-                node = tree
-                parts = k.split("/")
-                for p in parts[:-1]:
-                    node = node.setdefault(p, {})
-                node[parts[-1]] = data[k]
+        from busca_tpu_torch.models.checkpoint import load_params_npz
+
+        tree = load_params_npz(path)
         if "params" not in tree:
             tree = {"params": tree}
         sd = state_dict_from_flax(tree)

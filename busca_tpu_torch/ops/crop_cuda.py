@@ -9,98 +9,34 @@ value come from the same torch code the plain version runs
 the kernel does the sampling, blending, rounding, normalization and channel
 flip.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into the package's
-gitignored ``_build/`` directory at first use (a shared library with a plain
-C interface, loaded with ctypes), so importing this module needs neither
-CUDA nor a compiler.
+The source is built and loaded by :mod:`busca_tpu_torch.ops.cuda_build`
+at first use, so importing this module needs neither CUDA nor a compiler.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "crop_resize.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no contracted multiply-adds: float32 rounding equals the plain version
-    "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
-_lib = None
+from busca_tpu_torch.ops.cuda_build import CudaLibrary
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: K1 is built on a CUDA host")
-    return path
+def _declare(lib):
+    fn = lib.crop_resize_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 6
+        + [ctypes.c_void_p]
+    )
 
 
-def library_path() -> str:
-    """The built library's path, keyed by the source's content hash."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libcrop_resize_{digest}.so")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/crop_resize.cu`` unless this source is already built;
-    returns the library path.  ``verbose`` compiles even so, with
-    ``-Xptxas -v``, and prints the registers, stack and spills per kernel."""
-    path = library_path()
-    if os.path.exists(path) and not verbose:
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.crop_resize_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_float] * 6
-            + [ctypes.c_void_p]
-        )
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("crop_resize.cu", _declare)
 
 
 def launch(frame: torch.Tensor, iparams: torch.Tensor, pad: torch.Tensor,
@@ -112,7 +48,7 @@ def launch(frame: torch.Tensor, iparams: torch.Tensor, pad: torch.Tensor,
 
     mean, std = normalization_constants(bgr_input)
     n, oh, ow = out.shape[0], out.shape[1], out.shape[2]
-    err = _load().crop_resize_launch(
+    err = LIBRARY.load().crop_resize_launch(
         frame.data_ptr(), frame.shape[0], frame.shape[1],
         iparams.data_ptr(), pad.data_ptr(), n,
         out.data_ptr(), oh, ow,
