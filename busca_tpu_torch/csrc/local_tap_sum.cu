@@ -2,106 +2,487 @@
 // (LocalMultiScaleAttention), for Hopper (sm_90a).
 //
 //   out[p, c] = sum_{l < L, t < 9} w[p, c / head_dim, l*9 + t]
-//                                  * V_l[p + dil_l * delta_t, c]
+//                                  * V~_l[p + dil_l * delta_t, c]
 //
-// with zeros outside the map and a float32 accumulator.  values are
-// [L, H4, W4, C], weights [H4, W4, heads, L*9] (level-major, taps dy-outer /
-// dx-inner over (-1, 0, 1)), out [H4, W4, C]; all float32, contiguous.
+// with zeros outside the query grid and a float32 accumulator.  Level l is
+// given at its own resolution [h_l, w_l, C]; V~_l is it upsampled bilinearly
+// to the query grid [H4, W4] (PyTorch's align_corners=False rule, as
+// F.interpolate and jax.image.resize compute it), and a level already of the
+// query size is read as it is.  weights are [H4, W4, heads, L*9]
+// (level-major, taps dy-outer / dx-inner over (-1, 0, 1)), out [H4, W4, C];
+// all float32, contiguous.
 //
 // Replaces the Pallas TPU kernel busca_tpu/ops/lma_pallas.py::_kernel
-// (reached through lma_pallas.local_tap_sum), and computes the same function
-// as lma_pallas.local_tap_sum_reference.  It computes the function, not the
-// TPU blocks: no host-side dx-shifted copies of the values, no DMA row
-// windows, no 0/1 head-to-lane matmul.  Those were Mosaic workarounds.
+// (reached through lma_pallas.local_tap_sum) together with the bilinear
+// upsampling of the level maps in front of it
+// (busca_tpu/models/transcenter.py, LocalMultiScaleAttention).  It computes
+// the function, not the TPU blocks: no host-side dx-shifted copies, no DMA
+// row windows, no 0/1 head-to-lane matmul (Mosaic workarounds).
 //
-// Design: one thread computes 4 consecutive channels of one output pixel
-// (float4 loads and one float4 store); at C = 256 a pixel takes 64 threads,
-// and a block of 256 threads covers 4 neighbouring pixels of a row.  The
-// thread walks the L*9 taps in the reference's order, reads its head's
-// weight (the threads of one head read the same word: an L1 broadcast),
-// skips a tap outside the map (the reference adds 0*w there), and
-// accumulates acc = acc + v*w.
+// Bound: each output element is a 36-term sum with weights of its own
+// pixel, so there is no product for the tensor cores.  At the MOT17 shape
+// (160x272, levels 160x272, 80x136, 40x68, 20x34, C = 256, 8 heads) the
+// function reads the levels once (59.2 MB), the weights once (50.1 MB) and
+// writes the output once (44.6 MB): 153.9 MB, 0.0459 ms at 3.35 TB/s.
+// The float32 work, counted as the plain version does it: each upsampled
+// level is interpolated once per element, x-lerps at h_l x W4 and y-lerps
+// at H4 x W4, 3 operations each (0.13 GFLOP over the three upsampled
+// levels), and every tap inside the grid takes a multiply and an add
+// (0.78 GFLOP): 0.91 GFLOP, 0.0136 ms at 67 TFLOP/s.  Bytes bound it.
 //
-// Bound: bytes.  At the MOT17 shape (L=4, 160x272, C=256, 8 heads) the
-// function reads the values once (178.3 MB) and the weights once (50.1 MB)
-// and writes the output once (44.6 MB): 273.0 MB, 0.0815 ms at 3.35 TB/s.
-// Its 36 multiply-adds per output element are 0.80 GFLOP, 0.012 ms at the
-// float32 rate.  Each value element is read by up to 9 taps of its level; the
-// neighbouring taps hit L1/L2, so the device-memory traffic stays near the
-// bound only while a row band of the four level maps fits in cache.
+// Design.  A block owns a 16x16 tile of output pixels and a slice of SQ
+// float4 channel groups that lies in one head (SQ = 4, 16 channels, at
+// C = 256, head_dim 32; SQ = 2 at head_dim 8); the slice is the fastest
+// grid index, so the blocks of one tile run together and share its reads
+// in L2.  A thread computes one pixel's slice and keeps its SQ accumulators
+// in registers across the levels.
+// - At the start the block issues every copy with cp.async, one group per
+//   level: the tile's weights of its head (a pixel's L*9 in a row) and each
+//   level's footprint, the level pixels its taps read.  The weights go in
+//   16-byte pieces when a pixel's row is a whole number of them (L a
+//   multiple of 4, as the decoder's 4 levels are), else in 4-byte words:
+//   the stacked local_tap_sum takes any L <= 8, like
+//   lma_pallas.local_tap_sum.  The source index is monotone, so the
+//   footprint follows from the first and the last tap row and column:
+//   ragged ratios and the map's edges need no special case.
+// - Level by level the block waits for that level's group.  For an
+//   upsampled level it first writes the x-lerps of the footprint rows at
+//   the tile's full-resolution tap columns, once per block instead of once
+//   per tap; a tap then reads two of them and does its y-lerp.  Where the
+//   3 taps of a column read 4 consecutive rows (a whole-number ratio, away
+//   from the grid's edge), each row is read once: at the MOT17 shape that
+//   takes the kernel from 0.2376 to 0.2283 ms on an H100 (PERF.md section
+//   6).  A level at the query size is read directly.
+// - The taps have no branches, so that their reads issue together: a tap
+//   outside the grid reads the pixel's own row or column in place of the
+//   one outside, and takes weight 0.
+// At the MOT17 shape a block takes 88,576 bytes of shared memory (weights
+// 36,864; footprints 18x18, 12x12, 8x8 and 6x6 pixels of 64 bytes, 36,352;
+// x-lerps 12x20 pixels, 15,360), so two blocks share an SM; the launch
+// bounds hold a thread to 128 registers to match (ptxas for sm_90a, CUDA
+// 12.8, at SQ = 4: 128 registers, a 16-byte stack frame, 48 bytes of spill
+// stores and 32 of spill loads; at SQ = 2: 128, 12 and 12).  A
+// footprint that does not fit beside the others in 96 KB is read tap by
+// tap from global memory.  Only the stacked path meets it: there every
+// level is at the query size, and dilations 4 and 8 widen a level's
+// footprint to 24x24 and 32x32 pixels.  The decoder's call stages every
+// level.
 //
-// Rounding: build with -fmad=false, so that v*w is rounded before the add,
-// as in the plain torch version (ops/lma.py::local_tap_sum_plain); with the
-// same term order the two agree bit for bit.
+// Rounding: build with -fmad=false, so that every product is rounded before
+// its add, as in the plain torch version (ops/lma.py::
+// local_tap_sum_levels_plain: separable lerps, x then y, then
+// local_tap_sum_plain):
+//   v = l0y * (l0x * v00 + l1x * v01) + l1y * (l0x * v10 + l1x * v11),
+//   acc = acc + v * w,
+// in the reference's term order (levels, then dy, then dx), so the two agree
+// bit for bit.  A tap outside the grid adds v * 0, where v is the value of
+// one of the pixel's taps inside the grid; the plain version adds 0 * w.
+// For finite values both add zero (at most the sign of a zero sum
+// differs).  An inf or NaN in a level reaches the out-of-grid tap only if
+// an in-grid tap of the same pixel adds it too, so the kernel's output is
+// non-finite exactly where the plain version's is.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxLevels = 8;
+constexpr int kTileY = 16, kTileX = 16;
+constexpr int kThreads = kTileY * kTileX;  // one pixel of the tile each
+constexpr int kMaxSmemBytes = 96 * 1024;   // two blocks per SM at least
 
-struct Dils {
-  int d[kMaxLevels];
+struct Levels {
+  const float* v[kMaxLevels];
+  int h[kMaxLevels];
+  int w[kMaxLevels];
+  int dil[kMaxLevels];
+  // Per level, set by the launcher: the most pixels a tile's footprint can
+  // take (0 = not staged: read tap by tap from global memory) and its
+  // offset in the shared buffer, in float4 units.
+  int fp[kMaxLevels];
+  int off[kMaxLevels];
 };
 
-__global__ void local_tap_sum_kernel(
-    const float* __restrict__ values, const float* __restrict__ weights,
-    float* __restrict__ out, int levels, int h4, int w4, int c, int heads,
-    Dils dils) {
-  const int quads = c >> 2;  // float4 groups per pixel
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)h4 * w4 * quads;
-  if (tid >= total) return;
-  const int q = (int)(tid % quads);
-  const long long pix = tid / quads;
-  const int y = (int)(pix / w4);
-  const int x = (int)(pix - (long long)y * w4);
-  const int c0 = q << 2;
-  const int head = c0 / (c / heads);
-  const int taps = levels * 9;
-  const float* wrow = weights + (pix * heads + head) * taps;
-  const size_t plane = (size_t)h4 * w4 * c;
+// One axis of a bilinear tap, by PyTorch's align_corners=False rule
+// (ATen/native/UpSample.h: area_pixel_compute_source_index and
+// guard_index_and_lambda).
+struct Lerp {
+  int i0, i1;
+  float l0, l1;
+};
 
-  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int l = 0; l < levels; ++l) {
-    const int dil = dils.d[l];
-    const float* vl = values + (size_t)l * plane;
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int yy = y + (t / 3 - 1) * dil;
-      const int xx = x + (t % 3 - 1) * dil;
-      if (yy < 0 || yy >= h4 || xx < 0 || xx >= w4) continue;
-      const float wt = __ldg(wrow + l * 9 + t);
-      const float4 v = __ldg(reinterpret_cast<const float4*>(
-          vl + ((size_t)yy * w4 + xx) * c + c0));
-      acc.x = acc.x + v.x * wt;
-      acc.y = acc.y + v.y * wt;
-      acc.z = acc.z + v.z * wt;
-      acc.w = acc.w + v.w * wt;
+__device__ __forceinline__ Lerp lerp_index(int dst, int n, float scale) {
+  float src = scale * ((float)dst + 0.5f) - 0.5f;
+  src = src < 0.0f ? 0.0f : src;
+  Lerp r;
+  r.i0 = (int)src;
+  r.i1 = r.i0 + (r.i0 < n - 1 ? 1 : 0);
+  r.l1 = src - (float)r.i0;
+  r.l0 = 1.0f - r.l1;
+  return r;
+}
+
+__device__ __forceinline__ float4 lerp4(float4 a, float la, float4 b,
+                                        float lb) {
+  return make_float4(la * a.x + lb * b.x, la * a.y + lb * b.y,
+                     la * a.z + lb * b.z, la * a.w + lb * b.w);
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` (0..7) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+// A tile's footprint in one level: the level rows [r_lo, r_lo + rows) and
+// columns [j_lo, j_lo + jcols) that its taps read (for an upsampled level,
+// through their lerps), and the full-resolution tap columns
+// [xx_lo, xx_lo + cols).  The source index is monotone, so the first and
+// the last tap row and column give it.
+struct Footprint {
+  int r_lo, rows, j_lo, jcols, xx_lo, cols;
+};
+
+__device__ __forceinline__ Footprint footprint(int y0, int x0, int y_last,
+                                               int x_last, int d, int h,
+                                               int w, int h4, int w4,
+                                               bool direct, float sy,
+                                               float sx) {
+  const int yy_lo = max(y0 - d, 0), yy_hi = min(y_last + d, h4 - 1);
+  const int xx_lo = max(x0 - d, 0), xx_hi = min(x_last + d, w4 - 1);
+  Footprint f;
+  f.xx_lo = xx_lo;
+  f.cols = xx_hi - xx_lo + 1;
+  if (direct) {
+    f.r_lo = yy_lo;
+    f.rows = yy_hi - yy_lo + 1;
+    f.j_lo = xx_lo;
+    f.jcols = f.cols;
+  } else {
+    f.r_lo = lerp_index(yy_lo, h, sy).i0;
+    f.rows = lerp_index(yy_hi, h, sy).i1 - f.r_lo + 1;
+    f.j_lo = lerp_index(xx_lo, w, sx).i0;
+    f.jcols = lerp_index(xx_hi, w, sx).i1 - f.j_lo + 1;
+  }
+  return f;
+}
+
+// Block (slice, tile x, tile y): the slice is the fastest grid index, so the
+// blocks of one tile run together and share its reads in L2.  Shared
+// memory: the tile's weights of the slice's head, [256][L*9] floats; each
+// staged level's footprint, [SQ][rows][jcols] float4; one buffer of x-lerps,
+// [SQ][rows][cols] float4.
+template <int SQ>
+__global__ void __launch_bounds__(kThreads, 2)
+    local_tap_sum_kernel(Levels lv, const float* __restrict__ weights,
+                         float* __restrict__ out, int levels, int h4, int w4,
+                         int c, int heads, int xbuf_off, bool w16) {
+  extern __shared__ float4 smem[];
+  const int taps = levels * 9;
+  float* wsm = reinterpret_cast<float*>(smem);
+  float4* xbuf = smem + xbuf_off;
+  const int c0 = blockIdx.x * SQ * 4;  // the slice's first channel
+  const int x0 = blockIdx.y * kTileX, y0 = blockIdx.z * kTileY;
+  const int head = c0 / (c / heads);  // the slice lies in one head
+  const int tid = threadIdx.x;
+  const int y = y0 + tid / kTileX, x = x0 + tid % kTileX;
+  const bool inside = y < h4 && x < w4;
+  const int y_last = min(y0 + kTileY, h4) - 1;
+  const int x_last = min(x0 + kTileX, w4) - 1;
+
+  // Start every copy at once, one group per level (the weights go with
+  // level 0): the tile's weights of the head, a pixel's taps in a row,
+  // consecutive threads on consecutive words (in 16-byte pieces when a row
+  // is a whole number of them); then each staged level's footprint, the
+  // threads of a pixel reading its slice together.
+  {
+    const int piece = w16 ? 4 : 1, pieces = taps / piece;
+    int p = tid / pieces, t = tid - p * pieces;
+    const int step_p = kThreads / pieces, step_t = kThreads - step_p * pieces;
+    for (int i = tid; i < pieces * kThreads; i += kThreads) {
+      const int py = y0 + p / kTileX, px = x0 + p % kTileX;
+      if (py < h4 && px < w4) {
+        float* dst = wsm + p * taps + t * piece;
+        const float* src =
+            weights + (((size_t)py * w4 + px) * heads + head) * taps
+            + t * piece;
+        if (w16) {
+          cp_async16(reinterpret_cast<float4*>(dst), src);
+        } else {
+          cp_async4(dst, src);
+        }
+      }
+      p += step_p;
+      t += step_t;
+      if (t >= pieces) {
+        t -= pieces;
+        ++p;
+      }
     }
   }
-  *reinterpret_cast<float4*>(out + pix * c + c0) = acc;
+  for (int l = 0; l < levels; ++l) {
+    const int h = lv.h[l], w = lv.w[l];
+    const bool direct = h == h4 && w == w4;
+    const Footprint f = footprint(y0, x0, y_last, x_last, lv.dil[l], h, w,
+                                  h4, w4, direct, (float)h / (float)h4,
+                                  (float)w / (float)w4);
+    if (f.rows * f.jcols <= lv.fp[l]) {  // block-uniform
+      // thread: one float4 group q of every (kThreads / SQ)-th pixel
+      const float* vl = lv.v[l] + c0 + (tid % SQ) * 4;
+      float4* raw = smem + lv.off[l] + (tid % SQ) * f.rows * f.jcols;
+      const int step = kThreads / SQ;
+      const int step_r = step / f.jcols, step_j = step - step_r * f.jcols;
+      int r = (tid / SQ) / f.jcols, j = (tid / SQ) - r * f.jcols;
+      for (; r < f.rows; r += step_r, j += step_j) {
+        if (j >= f.jcols) {
+          j -= f.jcols;
+          if (++r >= f.rows) break;
+        }
+        cp_async16(raw + r * f.jcols + j,
+                   vl + ((size_t)(f.r_lo + r) * w + f.j_lo + j) * c);
+      }
+    }
+    cp_async_commit();
+  }
+
+  float4 acc[SQ];
+#pragma unroll
+  for (int q = 0; q < SQ; ++q) acc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  for (int l = 0; l < levels; ++l) {
+    const int d = lv.dil[l], h = lv.h[l], w = lv.w[l];
+    const float* vl = lv.v[l] + c0;
+    const bool direct = h == h4 && w == w4;
+    const float sy = (float)h / (float)h4;
+    const float sx = (float)w / (float)w4;
+    const Footprint f = footprint(y0, x0, y_last, x_last, d, h, w, h4, w4,
+                                  direct, sy, sx);
+    const bool staged = f.rows * f.jcols <= lv.fp[l];  // block-uniform
+    const float4* raw = smem + lv.off[l];
+    cp_async_wait(levels - 1 - l);  // this level's group is in
+    __syncthreads();  // ... for every thread; the last level's taps are done
+    // the taps read `buf`: the footprint itself for a level at the query
+    // size, its x-lerps at the tap columns for an upsampled level
+    const float4* buf = raw;
+    if (staged && !direct) {
+      const int lines = f.rows * SQ;  // [SQ][rows] lines of cols x-lerps
+      const int step_r = kThreads / f.cols;
+      const int step_c = kThreads - step_r * f.cols;
+      int qr = tid / f.cols, col = tid - qr * f.cols;
+      for (; qr < lines; qr += step_r, col += step_c) {
+        if (col >= f.cols) {
+          col -= f.cols;
+          if (++qr >= lines) break;
+        }
+        const Lerp rx = lerp_index(f.xx_lo + col, w, sx);
+        const float4* row = raw + qr * f.jcols - f.j_lo;
+        xbuf[qr * f.cols + col] = lerp4(row[rx.i0], rx.l0, row[rx.i1], rx.l1);
+      }
+      __syncthreads();
+      buf = xbuf;
+    }
+    if (!inside) continue;
+    const int plane = f.rows * f.cols;
+    // The level's 9 weights, y-lerps and columns.  Taps have no branches,
+    // so that their loads issue together: a tap outside the grid takes the
+    // pixel's own row or column in place of the one outside, so it reads
+    // the value of a tap inside the grid, and adds it with weight 0.
+    float wt[9];
+    Lerp ry[3];
+    int xc[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int yy = y + (k - 1) * d, xx = x + (k - 1) * d;
+      const bool y_in = yy >= 0 && yy < h4;
+      const int yc = y_in ? yy : y;
+      xc[k] = xx >= 0 && xx < w4 ? xx : x;
+      ry[k] = direct ? Lerp{yc, yc, 1.0f, 0.0f} : lerp_index(yc, h, sy);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int xt = x + (dx - 1) * d;
+        wt[k * 3 + dx] = y_in && xt >= 0 && xt < w4
+            ? wsm[tid * taps + l * 9 + k * 3 + dx] : 0.0f;
+      }
+    }
+    // the three taps' y-lerps read four consecutive rows (a whole-number
+    // ratio, away from the grid's edge): read each once
+    const bool regular = ry[1].i0 == ry[0].i0 + 1 &&
+                         ry[2].i0 == ry[0].i0 + 2 && ry[2].i1 == ry[2].i0 + 1;
+#pragma unroll
+    for (int q = 0; q < SQ; ++q) {
+      float4 v[9];
+      if (staged) {
+        const float4* bq = buf + q * plane - f.xx_lo;
+        if (direct) {
+#pragma unroll
+          for (int t = 0; t < 9; ++t) {
+            v[t] = bq[(ry[t / 3].i0 - f.r_lo) * f.cols + xc[t % 3]];
+          }
+        } else if (regular) {
+          const float4* b = bq + (ry[0].i0 - f.r_lo) * f.cols;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            float4 rows[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) rows[k] = b[k * f.cols + xc[dx]];
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+              v[dy * 3 + dx] = lerp4(rows[dy], ry[dy].l0, rows[dy + 1],
+                                     ry[dy].l1);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < 9; ++t) {
+            const Lerp& r = ry[t / 3];
+            v[t] = lerp4(bq[(r.i0 - f.r_lo) * f.cols + xc[t % 3]], r.l0,
+                         bq[(r.i1 - f.r_lo) * f.cols + xc[t % 3]], r.l1);
+          }
+        }
+      } else {
+        const float* vq = vl + q * 4;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const Lerp& r = ry[t / 3];
+          if (direct) {
+            v[t] = ldg4(vq + ((size_t)r.i0 * w + xc[t % 3]) * c);
+          } else {
+            const Lerp rx = lerp_index(xc[t % 3], w, sx);
+            const float* g0 = vq + (size_t)r.i0 * w * c;
+            const float* g1 = vq + (size_t)r.i1 * w * c;
+            v[t] = lerp4(lerp4(ldg4(g0 + (size_t)rx.i0 * c), rx.l0,
+                               ldg4(g0 + (size_t)rx.i1 * c), rx.l1),
+                         r.l0,
+                         lerp4(ldg4(g1 + (size_t)rx.i0 * c), rx.l0,
+                               ldg4(g1 + (size_t)rx.i1 * c), rx.l1),
+                         r.l1);
+          }
+        }
+      }
+      // the reference's term order: dy, then dx
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        acc[q].x = acc[q].x + v[t].x * wt[t];
+        acc[q].y = acc[q].y + v[t].y * wt[t];
+        acc[q].z = acc[q].z + v[t].z * wt[t];
+        acc[q].w = acc[q].w + v[t].w * wt[t];
+      }
+    }
+  }
+  if (inside) {
+    float4* o = reinterpret_cast<float4*>(out + ((size_t)y * w4 + x) * c + c0);
+#pragma unroll
+    for (int q = 0; q < SQ; ++q) o[q] = acc[q];
+  }
+}
+
+template <int SQ>
+cudaError_t launch_sq(Levels lv, const float* weights, float* out,
+                      int levels, int h4, int w4, int c, int heads,
+                      cudaStream_t stream) {
+  // Stage each level whose footprint bound fits.  A tile's taps reach
+  // ny <= 16 + 2*dil rows and nx <= 16 + 2*dil columns; through the lerps
+  // an upsampled level's footprint takes at most floor((ny - 1) * h / h4)
+  // + 3 of its rows (the source index is monotone), and likewise columns.
+  const int wsm = (levels * 9 * kThreads + 3) / 4;  // float4 units
+  int used = wsm, xbuf = 0;
+  for (int l = 0; l < levels; ++l) {
+    const int d = lv.dil[l], h = lv.h[l], w = lv.w[l];
+    const int ny = min(kTileY + 2 * d, h4), nx = min(kTileX + 2 * d, w4);
+    const bool direct = h == h4 && w == w4;
+    const int rows =
+        direct ? ny : min(h, (int)((long long)(ny - 1) * h / h4) + 3);
+    const int jcols =
+        direct ? nx : min(w, (int)((long long)(nx - 1) * w / w4) + 3);
+    const int need = rows * jcols * SQ;
+    const int xneed = direct ? 0 : rows * nx * SQ;
+    lv.fp[l] = 0;
+    lv.off[l] = used;
+    if ((used + need + max(xbuf, xneed)) * 16 <= kMaxSmemBytes) {
+      lv.fp[l] = rows * jcols;
+      used += need;
+      xbuf = max(xbuf, xneed);
+    }
+  }
+  const int smem = (used + xbuf) * 16;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        local_tap_sum_kernel<SQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((c / 4) / SQ, (w4 + kTileX - 1) / kTileX,
+                  (h4 + kTileY - 1) / kTileY);
+  // a pixel's weights in 16-byte pieces when its row of taps allows
+  const bool w16 = levels % 4 == 0 && (size_t)weights % 16 == 0;
+  local_tap_sum_kernel<SQ><<<grid, kThreads, smem, stream>>>(
+      lv, weights, out, levels, h4, w4, c, heads, used, w16);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  `dils` is a host array of
-// `levels` ints.  The wrapper (busca_tpu_torch/ops/lma_cuda.py) checks
-// shapes, C % 4 == 0, (C / heads) % 4 == 0, 16-byte alignment and
-// levels <= 8.  Launches on `stream` and returns the cudaError_t of the
+// Plain C entry point (bound with ctypes).  `values` is a host array of
+// `levels` device pointers, `level_hw` a host array of (h_l, w_l) pairs and
+// `dils` a host array of `levels` ints.  The wrapper
+// (busca_tpu_torch/ops/lma_cuda.py) checks shapes, 1 <= h_l <= h4 and
+// 1 <= w_l <= w4, (C / heads) % 8 == 0, 16-byte alignment and levels <= 8.  Launches on `stream` and returns the cudaError_t of the
 // launch (0 = success); it does not synchronize.
-extern "C" int local_tap_sum_launch(
-    const float* values, const float* weights, const int* dils, int levels,
-    int h4, int w4, int c, int heads, float* out, void* stream) {
+extern "C" int local_tap_sum_launch(const float* const* values,
+                                    const int* level_hw, const int* dils,
+                                    int levels, const float* weights, int h4,
+                                    int w4, int c, int heads, float* out,
+                                    void* stream) {
   if (levels <= 0 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   if (h4 <= 0 || w4 <= 0 || c <= 0) return 0;
-  Dils d = {};
-  for (int l = 0; l < levels; ++l) d.d[l] = dils[l];
-  const int threads = 256;
-  const long long total = (long long)h4 * w4 * (c / 4);
-  const long long blocks = (total + threads - 1) / threads;
-  local_tap_sum_kernel<<<(unsigned int)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-      values, weights, out, levels, h4, w4, c, heads, d);
-  return (int)cudaGetLastError();
+  Levels lv = {};
+  for (int l = 0; l < levels; ++l) {
+    lv.v[l] = values[l];
+    lv.h[l] = level_hw[2 * l];
+    lv.w[l] = level_hw[2 * l + 1];
+    lv.dil[l] = dils[l];
+  }
+  // the slice: 4 float4 groups where the head has a multiple of 16
+  // channels (32 in the MOT17 decoder), else 2 (8 in the tiny one), so
+  // that a slice lies in one head
+  const int head_quads = c / heads / 4;
+  if (head_quads % 2) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      head_quads % 4 == 0
+          ? launch_sq<4>(lv, weights, out, levels, h4, w4, c, heads, s)
+          : launch_sq<2>(lv, weights, out, levels, h4, w4, c, heads, s);
+  return (int)err;
 }

@@ -11,9 +11,10 @@ mechanical):
   shared weights.  The two frames go through it as one batch of 2.
 - **Dense center queries** at stride ``down_ratio`` (4), refined by
   ``num_decoder_layers`` decoder layers of current-frame and previous-frame
-  :class:`LocalMultiScaleAttention` plus an FFN.  The attention's 36-term
-  weighted-tap sum is :func:`busca_tpu_torch.ops.lma.local_tap_sum`, which
-  on the card is kernel K2.
+  :class:`LocalMultiScaleAttention` plus an FFN.  The attention's bilinear
+  upsampling of the levels and its 36-term weighted-tap sum are
+  :func:`busca_tpu_torch.ops.lma.local_tap_sum_levels`, which on the card
+  is kernel K2.
 - **Tracker feedback** as a Gaussian prior heatmap (``pre_hm``) embedded into
   the queries; **CenterNet-style heads** and :func:`generic_decode`.
 
@@ -35,7 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from busca_tpu_torch.ops.lma import local_tap_sum
+from busca_tpu_torch.ops.lma import local_tap_sum_levels
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 HM_BIAS = -4.6  # sigmoid ~ 0.01 prior (the CenterNet focal-loss init)
@@ -201,8 +202,10 @@ class LocalMultiScaleAttention(nn.Module):
     Each level's values are bilinearly upsampled to the query grid; the 3x3
     level-space neighbourhood becomes 9 shifts with a dilation equal to the
     level's stride ratio; per-query weights over (level, tap, head) are
-    softmaxed over level x tap.  The weighted sum is
-    :func:`~busca_tpu_torch.ops.lma.local_tap_sum` (kernel K2 on the card).
+    softmaxed over level x tap.  The upsampling and the weighted sum are
+    one call, :func:`~busca_tpu_torch.ops.lma.local_tap_sum_levels`, on the
+    value-projected levels at their own resolutions (kernel K2 on the card,
+    which interpolates inside the kernel).
     """
 
     def __init__(self, dim: int, heads: int = 8, levels: int = 4):
@@ -218,18 +221,12 @@ class LocalMultiScaleAttention(nn.Module):
         b, h4, w4, _ = queries.shape
         w = self.weights(queries).reshape(b, h4, w4, self.heads,
                                           self.levels * 9).softmax(dim=-1)
-        vs, dils = [], []
-        for lvl, fmap in enumerate(level_maps):
-            v = getattr(self, f"value_{lvl}")(fmap)
-            if v.shape[1] != h4 or v.shape[2] != w4:
-                v = _nhwc(F.interpolate(_nchw(v), size=(h4, w4),
-                                        mode="bilinear", align_corners=False))
-            vs.append(v)
-            dils.append(max(h4 // max(fmap.shape[1], 1), 1))
-        vals = torch.stack(vs, dim=1)  # [B, L, H4, W4, C]
+        vs = [getattr(self, f"value_{lvl}")(fmap)
+              for lvl, fmap in enumerate(level_maps)]
+        dils = tuple(max(h4 // max(fmap.shape[1], 1), 1)
+                     for fmap in level_maps)
         out = torch.stack([
-            local_tap_sum(vals[i].contiguous(), w[i].contiguous(),
-                          tuple(dils), self.heads)
+            local_tap_sum_levels([v[i] for v in vs], w[i], dils, self.heads)
             for i in range(b)
         ])
         return self.proj(out.reshape(b, h4 * w4, self.dim))

@@ -8,16 +8,25 @@ every query pixel ``p`` and channel ``c`` of head ``h = c // head_dim``::
 over a 3x3 neighbourhood per level (taps ordered dy-outer / dx-inner over
 (-1, 0, 1)), with zeros outside the map and a float32 accumulator.
 
-On a CUDA tensor :func:`local_tap_sum` launches the hand-written kernel K2
-(``ops/lma_cuda.py``, ``csrc/local_tap_sum.cu``); on a CPU tensor it runs the
-plain version below, the direct formulation with the same 36 terms in the
-same order.
+:func:`local_tap_sum_levels` computes the same sum from the level maps at
+their own resolutions: a level smaller than the query grid is first
+upsampled to it bilinearly (half-pixel centres, as ``F.interpolate(...,
+mode="bilinear", align_corners=False)`` and ``jax.image.resize(...,
+"bilinear")``).  :func:`local_tap_sum` takes the levels already at the query
+size, stacked (the counterpart of ``lma_pallas.local_tap_sum``).
+
+On a CUDA tensor both launch the hand-written kernel K2 (``ops/lma_cuda.py``,
+``csrc/local_tap_sum.cu``), which reads each level at its own size and
+interpolates inside the kernel; on a CPU tensor they run the plain versions
+below, which upsample explicitly and then add the same 36 terms in the same
+order.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,3 +67,67 @@ def local_tap_sum(values: torch.Tensor, weights: torch.Tensor,
 
         return local_tap_sum_cuda(values, weights, dils, heads)
     return local_tap_sum_plain(values, weights, dils)
+
+
+def _lerp_axis(v: torch.Tensor, size: int, dim: int) -> torch.Tensor:
+    """Bilinear resampling of ``v`` along ``dim`` to ``size`` samples, by
+    PyTorch's rule for ``align_corners=False`` (ATen ``UpSample.h``):
+    ``src = max(scale * (dst + 0.5) - 0.5, 0)`` with ``scale =
+    float32(n) / size``, ``i0 = floor(src)``, ``i1 = min(i0 + 1, n - 1)``,
+    ``l1 = src - i0``, ``l0 = 1 - l1``; the result is ``l0 * v[i0] + l1 *
+    v[i1]``, each product rounded before the add (as K2 computes it)."""
+    n = v.shape[dim]
+    scale = float(np.float32(n) / np.float32(size))
+    src = (torch.arange(size, dtype=torch.float32, device=v.device) + 0.5) \
+        * scale - 0.5
+    src = src.clamp_min(0.0)
+    i0 = src.to(torch.int64)
+    i1 = i0 + (i0 < n - 1).to(torch.int64)
+    l1 = src - i0.to(torch.float32)
+    l0 = 1.0 - l1
+    shape = [1] * v.dim()
+    shape[dim] = size
+    return (v.index_select(dim, i0) * l0.reshape(shape)
+            + v.index_select(dim, i1) * l1.reshape(shape))
+
+
+def upsample_bilinear_plain(v: torch.Tensor, hw: Sequence[int]
+                            ) -> torch.Tensor:
+    """``[h, w, C]`` -> ``[H, W, C]`` bilinearly (half-pixel centres): along
+    x first, then along y, as separable lerps.  A map already of size
+    ``hw`` is returned as it is."""
+    h4, w4 = int(hw[0]), int(hw[1])
+    if tuple(v.shape[:2]) == (h4, w4):
+        return v
+    return _lerp_axis(_lerp_axis(v, w4, 1), h4, 0)
+
+
+def local_tap_sum_levels_plain(levels: Sequence[torch.Tensor],
+                               weights: torch.Tensor,
+                               dils: Sequence[int]) -> torch.Tensor:
+    """Upsample every level to the query grid, stack, and take
+    :func:`local_tap_sum_plain`: what the CPU path runs and what K2 is held
+    against on the card."""
+    h4, w4 = weights.shape[:2]
+    values = torch.stack([upsample_bilinear_plain(v, (h4, w4))
+                          for v in levels])
+    return local_tap_sum_plain(values, weights, dils)
+
+
+def local_tap_sum_levels(levels: Sequence[torch.Tensor],
+                         weights: torch.Tensor, dils: Sequence[int],
+                         heads: int) -> torch.Tensor:
+    """levels: L maps ``[h_l, w_l, C]`` (value-projected, each at its own
+    resolution; level 0 is the query grid); weights ``[H4, W4, heads,
+    L * 9]``.  Returns ``[H4, W4, C]`` float32: :func:`local_tap_sum` of the
+    levels upsampled bilinearly to ``(H4, W4)``.  CUDA tensors go through
+    kernel K2, which reads each level at its own size; CPU tensors through
+    the plain version."""
+    if weights.shape[2] != heads:
+        raise ValueError(f"weights carry {weights.shape[2]} heads, not "
+                         f"{heads}")
+    if weights.is_cuda:
+        from busca_tpu_torch.ops.lma_cuda import local_tap_sum_levels_cuda
+
+        return local_tap_sum_levels_cuda(levels, weights, dils, heads)
+    return local_tap_sum_levels_plain(levels, weights, dils)

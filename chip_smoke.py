@@ -12,9 +12,12 @@ Phases (each failure exits non-zero before the result line):
    combination of the crop op, and the detector's letterbox shape (one
    full-frame box, 1080x1920 -> 612x1088); max |diff|, exact share, times
    and bound;
-3. K2 against its plain torch version at the MOT17 decoder shape (4 levels,
-   160x272, C=256, 8 heads, dilations 1/2/4/8, softmaxed weights) and at a
-   ragged shape; max |diff|, exact share, times and bound;
+3. K2 against its plain torch version: over the level maps at their own
+   resolutions (the decoder's call) at the MOT17 pyramid (query 160x272;
+   levels 160x272, 80x136, 40x68, 20x34; C=256, 8 heads; softmaxed
+   weights) and at a ragged pyramid, and over levels stacked at the query
+   size at the MOT17 shape (exact); max |diff|, exact share, times (also of
+   the upsample + stack + K2 chain the decoder ran before) and bound;
 4. an association drive at 1080p: 16 tracks with full 11-crop memories and
    30 detections, all cropped through K1, scored by the full-width model
    (ResNet-50, d=512, 4 layers) with random seeded weights in float32, TF32
@@ -27,7 +30,8 @@ Phases (each failure exits non-zero before the result line):
    the same model on the CPU at 128x224 on all five maps, then
    ``track_frames_with_detector`` with TransCenterByteTracker + BUSCA over
    the dropout sequence at 1080x1920, with K1's and K2's launch counts read
-   around it (K2: exactly 12 per frame);
+   around it (K2: exactly 12 per frame), the detector step's time, peak
+   memory and profile by kernel kind;
 7. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -51,10 +55,10 @@ LETTERBOX_HW = (612, 1088)  # 1080x1920 into the 640x1088 test size
 # the flags both main paths crop with (BUSCA crops, the letterbox)
 K1_MAIN_KW = dict(normalize=False, bgr_input=True, rgb_output=False,
                   quantize_uint8=True)
-# K2: L, H4, W4, C, heads, dilations (MOT17 decoder shape; the ragged shape
-# of tests/test_deform.py)
-K2_SHAPES = {"mot17": (4, 160, 272, 256, 8, (1, 2, 4, 8)),
-             "ragged": (3, 20, 24, 64, 4, (1, 2, 4))}
+# K2: the levels' (h, w) (the first is the query grid), C, heads: the MOT17
+# decoder pyramid and a ragged one (SAME-padded sizes, no whole-number ratio)
+K2_PYRAMIDS = {"mot17": ([(160, 272), (80, 136), (40, 68), (20, 34)], 256, 8),
+               "ragged": ([(13, 17), (7, 9), (4, 5), (2, 3)], 32, 4)}
 K2_TOL = 1e-5
 TC_TEST_SIZE = (640, 1088)
 TC_CPU_SIZE = (128, 224)  # every PVT stage divides: no SAME padding
@@ -295,49 +299,105 @@ def phase_k1_letterbox(device):
     return result
 
 
-def k2_bound_ms(levels, h4, w4, c, heads):
-    """Least time for the tap sum: bytes (values and weights read once, the
-    float32 output written once) over the memory rate, or float32
-    operations (a multiply and an add per term, 9 taps per level) over the
-    float32 rate, whichever is larger."""
-    nbytes = 4 * (levels * h4 * w4 * c + h4 * w4 * heads * levels * 9
-                  + h4 * w4 * c)
-    ops = 2 * levels * 9 * h4 * w4 * c
+def k2_bound_ms(level_hw, c, heads, dils):
+    """Least time for the tap sum over level maps: bytes (each level read
+    once at its own resolution, the weights once, the float32 output written
+    once) over the memory rate, or float32 operations over the float32 rate,
+    whichever is larger.  Operations, per channel, as the plain version
+    computes them: an upsampled level interpolated once, x-lerps at h_l x W4
+    and y-lerps at H4 x W4 of 3 operations each, then a multiply and an add
+    for every tap inside the grid."""
+    (h4, w4), levels = level_hw[0], len(level_hw)
+    nbytes = 4 * (sum(h * w * c for h, w in level_hw)
+                  + h4 * w4 * heads * levels * 9 + h4 * w4 * c)
+    ops = 0
+    for (h, w), d in zip(level_hw, dils):
+        inside = (sum(max(h4 - abs(k) * d, 0) for k in (-1, 0, 1))
+                  * sum(max(w4 - abs(k) * d, 0) for k in (-1, 0, 1)))
+        ops += inside * c * 2
+        if (h, w) != (h4, w4):
+            ops += 3 * (h * w4 + h4 * w4) * c
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, ops
 
 
-def phase_k2(device):
+def k2_pyramid(device, level_hw, c, heads, seed=5):
+    """Seeded level maps at their own resolutions and softmaxed weights."""
     import torch
 
+    g = torch.Generator().manual_seed(seed)
+    h4, w4 = level_hw[0]
+    levels = [torch.randn((h, w, c), generator=g).to(device)
+              for h, w in level_hw]
+    wts = torch.randn((h4, w4, heads, len(level_hw) * 9),
+                      generator=g).softmax(-1).to(device)
+    dils = tuple(max(h4 // h, 1) for h, _ in level_hw)
+    return levels, wts, dils
+
+
+def phase_k2(device):
+    import torch
+    import torch.nn.functional as F
+
     from busca_tpu_torch.ops import lma_cuda
-    from busca_tpu_torch.ops.lma import local_tap_sum, local_tap_sum_plain
+    from busca_tpu_torch.ops.lma import (
+        local_tap_sum,
+        local_tap_sum_levels,
+        local_tap_sum_levels_plain,
+        local_tap_sum_plain,
+        upsample_bilinear_plain,
+    )
     from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
 
     result = None
-    for name, (levels, h4, w4, c, heads, dils) in K2_SHAPES.items():
-        g = torch.Generator().manual_seed(5)
-        vals = torch.randn((levels, h4, w4, c), generator=g).to(device)
-        wts = torch.randn((h4, w4, heads, levels * 9),
-                          generator=g).softmax(-1).to(device)
+    for name, (level_hw, c, heads) in K2_PYRAMIDS.items():
+        levels, wts, dils = k2_pyramid(device, level_hw, c, heads)
+        h4, w4 = level_hw[0]
         out = torch.empty((h4, w4, c), device=device)
         held = hold_against_plain(
-            f"K2 at {name} (L={levels}, {h4}x{w4}, C={c}, {heads} heads, "
-            f"dils {dils})",
-            lambda: local_tap_sum(vals, wts, dils, heads),
-            lambda: local_tap_sum_plain(vals, wts, dils),
-            lambda: lma_cuda.launch(vals, wts, dils, heads, out),
+            f"K2 over the levels at {name} ({level_hw}, C={c}, {heads} "
+            f"heads, dils {dils})",
+            lambda: local_tap_sum_levels(levels, wts, dils, heads),
+            lambda: local_tap_sum_levels_plain(levels, wts, dils),
+            lambda: lma_cuda.launch(levels, wts, dils, heads, out),
             local_tap_sum_cuda, K2_TOL, out.shape, timed=name == "mot17")
         if name != "mot17":
             continue
-        bms, bound_by, nbytes, ops = k2_bound_ms(levels, h4, w4, c, heads)
-        print(f"K2 at {name}: op {held['ms']:.4f} ms (kernel alone "
-              f"{held['kernel_ms']:.4f} ms), plain {held['plain_ms']:.4f} "
-              f"ms, bound {bms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} "
-              f"MB, {ops / 1e9:.2f} GFLOP); no single PyTorch call computes "
-              "this tap sum, so no library time")
+        # the decoder's chain before: upsample with F.interpolate, stack,
+        # then K2 on the stacked maps
+        def chain():
+            up = [v if v.shape[:2] == (h4, w4) else F.interpolate(
+                v.permute(2, 0, 1)[None], size=(h4, w4), mode="bilinear",
+                align_corners=False)[0].permute(1, 2, 0) for v in levels]
+            return local_tap_sum(torch.stack(up), wts, dils, heads)
+
+        launches0 = local_tap_sum_cuda.launches
+        chain_ms = cuda_time_ms(chain)
+        local_tap_sum_cuda.launches = launches0
+        bms, bound_by, nbytes, ops = k2_bound_ms(level_hw, c, heads, dils)
+        print(f"K2 over the levels at {name}: op {held['ms']:.4f} ms (kernel "
+              f"alone {held['kernel_ms']:.4f} ms), plain "
+              f"{held['plain_ms']:.4f} ms, the chain it replaces (interpolate"
+              f" + stack + K2) {chain_ms:.4f} ms, bound {bms:.4f} ms by "
+              f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+              "no single PyTorch call computes this tap sum, so no library "
+              "time")
+        # the stacked counterpart of lma_pallas.local_tap_sum: every level
+        # at the query size, through the same kernel, bit for bit
+        vals = torch.stack([upsample_bilinear_plain(v, (h4, w4))
+                            for v in levels])
+        stacked = hold_against_plain(
+            f"K2 over stacked levels at {name} ({tuple(vals.shape)})",
+            lambda: local_tap_sum(vals, wts, dils, heads),
+            lambda: local_tap_sum_plain(vals, wts, dils),
+            lambda: lma_cuda.launch(list(vals.unbind(0)), wts, dils, heads,
+                                    out),
+            local_tap_sum_cuda, 0.0, out.shape)
+        print(f"K2 over stacked levels at {name}: op {stacked['ms']:.4f} ms "
+              f"(kernel alone {stacked['kernel_ms']:.4f} ms), plain "
+              f"{stacked['plain_ms']:.4f} ms")
         result = {
             "name": "local_tap_sum (K2)",
             "route": "cuda",
@@ -347,6 +407,8 @@ def phase_k2(device):
             "bound_ms": bms,
             "bound_by": bound_by,
             "library_ms": None,
+            "chain_ms": chain_ms,
+            "stacked": stacked,
         }
     return result
 
@@ -560,6 +622,9 @@ def profile_step(step, step_ms, reps=3):
     print(f"detector step profile (mean of {reps}): device busy "
           f"{busy:.2f} ms of the {step_ms:.2f} ms step, idle "
           f"{100 * (1 - busy / step_ms):.1f}%; {parts}")
+    up = by_kind.get("upsample", 0.0)
+    print(f"detector step profile: upsample {up:.2f} ms "
+          f"({100 * up / busy:.1f}% of the device time)")
 
 
 def phase_transcenter(device, engine, k2_ms):
@@ -642,6 +707,15 @@ def phase_transcenter(device, engine, k2_ms):
                            warmup=1)
     print(f"detector step (forward, decode, NMS) at {TC_TEST_SIZE}: "
           f"{step_ms:.2f} ms")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.step(canvas, canvas, pre_hm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"detector step peak memory: {peak / 1e6:.1f} MB allocated, "
+          f"{(peak - held) / 1e6:.1f} MB above the {held / 1e6:.1f} MB held "
+          "before the step")
 
     # CMC off: the card host has no cv2
     tracker = make_tracker(

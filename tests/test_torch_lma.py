@@ -1,19 +1,27 @@
 """The port's plain tap sum (busca_tpu_torch/ops/lma.py) against the JAX
 package's Pallas kernel (interpret mode on the CPU) and its direct
-formulation, on the same seeded inputs.
+formulation, on the same seeded inputs; and the tap sum over level maps at
+their own resolutions against ``jax.image.resize`` of each level followed by
+the same two JAX functions.
 
 Tolerance 1e-5 (the JAX suite's own kernel-vs-reference bound,
 tests/test_deform.py); the plain version repeats the reference's 36 terms in
 the same order, so it is expected to agree far closer.
 """
 
+import jax
 import jax.experimental.pallas as pl
 import numpy as np
 import pytest
 import torch
 
 from busca_tpu.ops import lma_pallas
-from busca_tpu_torch.ops.lma import local_tap_sum, local_tap_sum_plain
+from busca_tpu_torch.ops.lma import (
+    local_tap_sum,
+    local_tap_sum_levels,
+    local_tap_sum_plain,
+    upsample_bilinear_plain,
+)
 
 TOL = 1e-5
 SHAPES = {
@@ -22,6 +30,13 @@ SHAPES = {
     # four levels, H4 = 13 (odd, not a multiple of 8), narrow heads
     "four_levels": (4, 13, 17, 32, 8, (1, 2, 4, 8)),
 }
+# query grid, then the levels' (h, w) at their own resolutions
+PYRAMIDS = {
+    "power_of_two": ((16, 24), [(16, 24), (8, 12), (4, 6), (2, 3)]),
+    # SAME-padded sizes: no level is a whole-number fraction of the grid
+    "ragged": ((13, 17), [(13, 17), (7, 9), (4, 5), (2, 3)]),
+}
+PYRAMID_C, PYRAMID_HEADS = 32, 4
 
 
 def _inputs(levels, h4, w4, c, heads, seed):
@@ -85,3 +100,68 @@ def test_heads_must_match_the_weights():
     with pytest.raises(ValueError, match="heads"):
         local_tap_sum(torch.from_numpy(vals), torch.from_numpy(wts), (1, 2),
                       4)
+
+
+def _pyramid_inputs(name, seed):
+    (h4, w4), hws = PYRAMIDS[name]
+    rng = np.random.RandomState(seed)
+    levels = [rng.randn(h, w, PYRAMID_C).astype(np.float32) for h, w in hws]
+    logits = rng.randn(h4, w4, PYRAMID_HEADS, len(hws) * 9)
+    wts = np.array(jax.nn.softmax(logits, axis=-1), np.float32)
+    dils = tuple(max(h4 // h, 1) for h, _ in hws)
+    return levels, wts, dils
+
+
+def _jax_upsampled(levels, h4, w4):
+    return np.stack([np.asarray(jax.image.resize(
+        v, (h4, w4, v.shape[2]), "bilinear")) for v in levels])
+
+
+@pytest.mark.parametrize("name", sorted(PYRAMIDS))
+def test_levels_match_jax_reference(name):
+    levels, wts, dils = _pyramid_inputs(name, seed=7)
+    h4, w4 = wts.shape[:2]
+    want = np.asarray(lma_pallas.local_tap_sum_reference(
+        _jax_upsampled(levels, h4, w4), wts, dils))
+    got = local_tap_sum_levels([torch.from_numpy(v) for v in levels],
+                               torch.from_numpy(wts), dils, PYRAMID_HEADS)
+    assert got.dtype == torch.float32 and got.shape == (h4, w4, PYRAMID_C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name", sorted(PYRAMIDS))
+def test_levels_match_pallas_kernel(interpret, name):
+    levels, wts, dils = _pyramid_inputs(name, seed=8)
+    h4, w4 = wts.shape[:2]
+    want = np.asarray(lma_pallas.local_tap_sum(
+        _jax_upsampled(levels, h4, w4), wts, dils, PYRAMID_HEADS))
+    got = local_tap_sum_levels([torch.from_numpy(v) for v in levels],
+                               torch.from_numpy(wts), dils, PYRAMID_HEADS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("name", sorted(PYRAMIDS))
+def test_upsampling_matches_jax_resize(name):
+    (h4, w4), hws = PYRAMIDS[name]
+    rng = np.random.RandomState(9)
+    for h, w in hws:
+        v = rng.randn(h, w, 8).astype(np.float32)
+        want = np.asarray(jax.image.resize(v, (h4, w4, 8), "bilinear"))
+        got = upsample_bilinear_plain(torch.from_numpy(v), (h4, w4))
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_level_at_the_query_size_goes_through_unchanged():
+    """A level already of the query size is not resampled: the level-map
+    sum over full-size levels equals the stacked sum bit for bit."""
+    levels, wts, dils = _pyramid_inputs("ragged", seed=10)
+    v0 = torch.from_numpy(levels[0])
+    assert upsample_bilinear_plain(v0, v0.shape[:2]) is v0
+    full = [torch.from_numpy(v) for v in _jax_upsampled(levels, 13, 17)]
+    full[0] = v0
+    got = local_tap_sum_levels(full, torch.from_numpy(wts), dils,
+                               PYRAMID_HEADS)
+    want = local_tap_sum(torch.stack(full), torch.from_numpy(wts), dils,
+                         PYRAMID_HEADS)
+    assert torch.equal(got, want)
+
