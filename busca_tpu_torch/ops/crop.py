@@ -5,8 +5,9 @@ ltrb box of one frame:
 
 - the cutout is ``floor(x1), floor(y1), ceil(x2), ceil(y2)``, clipped to the
   frame; the area outside the frame is padded with the scalar mean of the
-  clipped region (all pixels and channels), taken in O(1) from an integral
-  image and truncated under ``quantize_uint8`` (np.pad's cast into uint8);
+  clipped region (all pixels and channels), truncated under
+  ``quantize_uint8`` (np.pad's cast into uint8); the plain version takes it
+  in O(1) from an integral image;
 - it is resized to ``out_hw`` with cv2.INTER_LINEAR's half-pixel convention
   and edge clamp; ``quantize_uint8`` rounds and clips to 0..255;
 - boxes that are degenerate or wholly outside the frame give zero crops;
@@ -16,13 +17,17 @@ ltrb box of one frame:
 On a CUDA tensor :func:`crop_resize_normalize` launches the hand-written
 kernel (``ops/crop_cuda.py``, ``csrc/crop_resize.cu``); on a CPU tensor it
 runs the plain version below, which repeats the kernel's arithmetic op for
-op.
+op.  The kernel derives the box geometry itself and sums a box's clipped
+region only when its cutout leaves the frame: for a cutout inside the frame
+the pad value meets only taps of weight exactly 0, so it cannot change the
+output (``tests/test_torch_crop.py`` pins this on the plain version).
 
-Region sums are exact: the integral image is an int64 prefix sum, and only
-the mean is formed in float32 (``total / (cnt * 3)``).  ``busca_tpu`` sums
-in float32, which is exact only while every prefix sum stays below 2**24
-(frames up to about 21,900 pixels of uint8), so the two differ on larger
-frames wherever the pad mean is used.
+Region sums are exact: the plain version's integral image is an int64
+prefix sum, the kernel's sums are integer, and only the mean is formed in
+float32 (``total / (cnt * 3)``).  ``busca_tpu`` sums in float32, which is
+exact only while every prefix sum stays below 2**24 (frames up to about
+21,900 pixels of uint8), so the two differ on larger frames wherever the pad
+mean is used.
 """
 
 from __future__ import annotations
@@ -54,8 +59,9 @@ def box_params(frame: torch.Tensor, boxes: torch.Tensor,
     """Per-box integer geometry and pad value (``_crop_one`` lines 69-87).
 
     Returns ``(iparams [N, 9] int32, pad_val [N] float32)`` with iparams
-    columns ``x1, y1, wc, hc, cx1, cx2, cy1, cy2, valid`` — the layout the
-    CUDA kernel reads.
+    columns ``x1, y1, wc, hc, cx1, cx2, cy1, cy2, valid``.  Kernel K1
+    derives the same integers on the card (``csrc/crop_resize.cu``,
+    ``box_geometry``).
     """
     h, w = frame.shape[0], frame.shape[1]
     boxes = boxes.to(torch.float32)
@@ -211,7 +217,10 @@ def crop_resize_normalize(
     Args:
       frame: ``[H, W, 3]`` uint8 (or float) frame, BGR unless ``bgr_input``
         is False.
-      boxes: ``[N, 4]`` ltrb boxes in frame coordinates.
+      boxes: ``[N, 4]`` ltrb boxes in frame coordinates, each coordinate
+        within +-2**30 (there the kernel's float -> int conversion agrees
+        with the plain version's; tracker boxes lie within a few frame
+        widths).
       out_hw: output crop size (H, W).
       normalize: apply the GHOST ``(x/255 - mean)/std`` normalization.
       rgb_output: flip channels to RGB (what the ReID net expects).

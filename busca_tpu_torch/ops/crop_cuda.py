@@ -3,11 +3,12 @@ card.
 
 K1 replaces the Pallas TPU kernel ``busca_tpu/ops/crop_pallas.py::
 _crop_kernel`` and computes :func:`busca_tpu_torch.ops.crop.
-crop_resize_normalize` for a CUDA frame.  The per-box integers and the pad
-value come from the same torch code the plain version runs
-(:func:`~busca_tpu_torch.ops.crop.box_params`, exact int64 integral image);
-the kernel does the sampling, blending, rounding, normalization and channel
-flip.
+crop_resize_normalize` for a CUDA frame.  One call of the op is the kernel's
+own two launches and nothing else: the kernel derives each box's integer
+geometry from the float32 boxes, sums the clipped region exactly (integer
+sums) only for the boxes whose cutout leaves the frame, and does the
+sampling, blending, rounding, normalization and channel flip.  The wrapper
+checks its inputs and allocates the output and a small scratch buffer.
 
 The source is built and loaded by :mod:`busca_tpu_torch.ops.cuda_build`
 at first use, so importing this module needs neither CUDA nor a compiler.
@@ -28,29 +29,45 @@ def _declare(lib):
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_float] * 6
         + [ctypes.c_void_p]
     )
+    lib.crop_resize_scratch_per_box.restype = ctypes.c_int
+    lib.crop_resize_scratch_per_box.argtypes = []
 
 
 LIBRARY = CudaLibrary("crop_resize.cu", _declare)
 
 
-def launch(frame: torch.Tensor, iparams: torch.Tensor, pad: torch.Tensor,
+def buffers(n: int, out_hw: Tuple[int, int], device):
+    """The output ``[n, OH, OW, 3]`` float32 and the scratch the kernel
+    needs for ``n`` boxes (int64 words: the pad sums' partials)."""
+    per_box = LIBRARY.load().crop_resize_scratch_per_box()
+    out = torch.empty((n, int(out_hw[0]), int(out_hw[1]), 3),
+                      dtype=torch.float32, device=device)
+    scratch = torch.empty((n, per_box), dtype=torch.int64, device=device)
+    return out, scratch
+
+
+def launch(frame: torch.Tensor, boxes: torch.Tensor, scratch: torch.Tensor,
            out: torch.Tensor, *, quantize_uint8: bool, normalize: bool,
-           bgr_input: bool, rgb_output: bool):
-    """Launch K1 on precomputed box parameters into ``out``
-    ``[N, OH, OW, 3]`` float32 (validated by :func:`crop_resize_cuda`)."""
+           bgr_input: bool, rgb_output: bool, library: CudaLibrary = None):
+    """Launch K1 on ``frame`` ``[H, W, 3]`` uint8 and ``boxes`` ``[N, 4]``
+    float32 into ``out`` ``[N, OH, OW, 3]`` float32, with ``scratch`` from
+    :func:`buffers` (all contiguous on one card, as
+    :func:`crop_resize_cuda` checks and makes them).  ``library``: a build
+    of the source other than :data:`LIBRARY` (a variant with ``-D``
+    defines, for measurement)."""
     from busca_tpu_torch.ops.crop import normalization_constants
 
     mean, std = normalization_constants(bgr_input)
     n, oh, ow = out.shape[0], out.shape[1], out.shape[2]
-    err = LIBRARY.load().crop_resize_launch(
+    err = (library or LIBRARY).load().crop_resize_launch(
         frame.data_ptr(), frame.shape[0], frame.shape[1],
-        iparams.data_ptr(), pad.data_ptr(), n,
+        boxes.data_ptr(), n, scratch.data_ptr(),
         out.data_ptr(), oh, ow,
         int(quantize_uint8), int(normalize), int(rgb_output == bgr_input),
         *(float(v) for v in mean), *(float(v) for v in std),
@@ -74,8 +91,6 @@ def crop_resize_cuda(
     """:func:`~busca_tpu_torch.ops.crop.crop_resize_normalize` on the card
     through K1.  ``frame``: CUDA ``[H, W, 3]`` uint8; ``boxes``: ``[N, 4]``
     ltrb.  Returns ``[N, OH, OW, 3]`` float32 on the frame's device."""
-    from busca_tpu_torch.ops.crop import box_params
-
     if not frame.is_cuda:
         raise ValueError("crop_resize_cuda needs a CUDA frame")
     if frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3:
@@ -87,14 +102,10 @@ def crop_resize_cuda(
     if boxes.shape[0] > 65535:  # the grid's y dimension is one box each
         raise ValueError(f"at most 65535 boxes per call, got "
                          f"{boxes.shape[0]}")
-    frame = frame.contiguous()
-    oh, ow = int(out_hw[0]), int(out_hw[1])
-    iparams, pad = box_params(frame, boxes, quantize_uint8)
-    iparams, pad = iparams.contiguous(), pad.contiguous()
-    out = torch.empty((boxes.shape[0], oh, ow, 3), dtype=torch.float32,
-                      device=frame.device)
+    frame, boxes = frame.contiguous(), boxes.contiguous()
+    out, scratch = buffers(boxes.shape[0], out_hw, frame.device)
     if boxes.shape[0]:
-        launch(frame, iparams, pad, out, quantize_uint8=quantize_uint8,
+        launch(frame, boxes, scratch, out, quantize_uint8=quantize_uint8,
                normalize=normalize, bgr_input=bgr_input,
                rgb_output=rgb_output)
     return out

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -48,19 +48,25 @@ class CudaLibrary:
     Args:
       source: file name under ``csrc/``.
       declare: sets ``argtypes``/``restype`` of the library's entry points.
+      defines: ``NAME=VALUE`` macros passed to nvcc as ``-D`` (variants of
+        a kernel built for measurement; the ops use none).
     """
 
-    def __init__(self, source: str, declare: Callable[[ctypes.CDLL], None]):
+    def __init__(self, source: str, declare: Callable[[ctypes.CDLL], None],
+                 defines: Sequence[str] = ()):
         self.source = os.path.join(CSRC_DIR, source)
         self.stem = os.path.splitext(source)[0]
+        self.defines = tuple(defines)
         self._declare = declare
         self._lib = None
 
     def library_path(self) -> str:
-        """The built library's path, keyed by the source's content hash."""
+        """The built library's path, keyed by the source's content hash and
+        the defines."""
         with open(self.source, "rb") as f:
-            digest = hashlib.sha1(f.read()).hexdigest()[:12]
-        return os.path.join(BUILD_DIR, f"lib{self.stem}_{digest}.so")
+            digest = hashlib.sha1(f.read() + repr(self.defines).encode())
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.stem}_{digest.hexdigest()[:12]}.so")
 
     def build(self) -> Tuple[float, str]:
         """Compile the source with one ``nvcc``; returns the seconds it took
@@ -70,9 +76,9 @@ class CudaLibrary:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                   self.source], capture_output=True,
-                                  text=True)
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines),
+                 "-o", tmp, self.source], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc {os.path.basename(self.source)} "
                                    f"failed ({proc.returncode}):\n"

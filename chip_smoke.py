@@ -7,11 +7,13 @@ Phases (each failure exits non-zero before the result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of kernels K1 and K2 from busca_tpu_torch/csrc/ (one nvcc each,
    started together), with their ptxas reports;
-2. K1 against its plain torch version on the card: a seeded 1080x1920 frame,
-   64 boxes (inside, partly outside, wholly outside, degenerate), every flag
-   combination of the crop op, and the detector's letterbox shape (one
-   full-frame box, 1080x1920 -> 612x1088); max |diff|, exact share, times
-   and bound;
+2. K1 against its plain torch version on the card, exactly: a seeded
+   1080x1920 frame, 64 boxes (inside, partly outside, wholly outside,
+   degenerate), every flag combination of the crop op; the detector's
+   letterbox shape (one full-frame box, 1080x1920 -> 612x1088); and the pad
+   path at 2160x3840 (values 200-255, boxes across each edge, one covering
+   the frame, whose region total passes 2**32); max |diff|, exact share,
+   times of the op, the kernel alone and the plain version, and the bound;
 3. K2 against its plain torch version: over the level maps at their own
    resolutions (the decoder's call) at the MOT17 pyramid (query 160x272;
    levels 160x272, 80x136, 40x68, 20x34; C=256, 8 heads; softmaxed
@@ -49,9 +51,10 @@ CROP_HW = (384, 128)
 N_BOXES = 64
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
-QUANT_TOL, FLOAT_TOL = 1.0, 1e-3
+K1_TOL = 0.0  # K1 equals its plain version bit for bit
 PROB_TOL = 1e-3  # card vs CPU probabilities, float32 with TF32 off
 LETTERBOX_HW = (612, 1088)  # 1080x1920 into the 640x1088 test size
+PAD_FRAME_HW = (2160, 3840)  # K1's pad path: a 4K frame of values 200-255
 # the flags both main paths crop with (BUSCA crops, the letterbox)
 K1_MAIN_KW = dict(normalize=False, bgr_input=True, rgb_output=False,
                   quantize_uint8=True)
@@ -100,6 +103,37 @@ def cuda_time_ms(fn, reps=20, warmup=3):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_time_ms(fn, reps=20, warmup=3):
+    """Mean device ms per call of ``fn`` with the host's time taken out: a
+    sleep kernel holds the stream while the host queues the ``reps`` calls,
+    so the CUDA events time the device's work alone.  (Back to back, as
+    :func:`cuda_time_ms` times, a call that queues less work than its host
+    code takes is timed at the host's rate.)  Fails if the hold ended before
+    the calls were queued."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # hold for three times the calls' wall time, at up to 2e9 cycles/s
+    torch.cuda._sleep(int(3 * wall_s * 2e9) + 1000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    held = not start.query()
+    torch.cuda.synchronize()
+    check(held, "the stream hold ended before the timed calls were queued")
     return start.elapsed_time(end) / reps
 
 
@@ -160,7 +194,9 @@ def hold_against_plain(label, op, plain, kernel_alone, counter, tol, shape,
     Checks the op's output (on the card, of ``shape``, finite, max |diff|
     to ``plain()`` within ``tol``) and prints max |diff| and the exact
     share.  When ``timed``, also times the op, ``kernel_alone()`` (the
-    kernel on prepared inputs) and the plain version.  The launches made
+    kernel on prepared inputs) and the plain version back to back
+    (:func:`cuda_time_ms`), and the op and the kernel on the device alone
+    (:func:`device_time_ms`).  The launches made
     here are taken back off ``counter.launches``: only the main path's
     count.  Returns the fields for the ``kernels`` line."""
     import torch
@@ -183,6 +219,8 @@ def hold_against_plain(label, op, plain, kernel_alone, counter, tol, shape,
         out["ms"] = cuda_time_ms(op)
         out["kernel_ms"] = cuda_time_ms(kernel_alone)
         out["plain_ms"] = cuda_time_ms(plain, reps=5, warmup=1)
+        out["device_ms"] = device_time_ms(op)
+        out["kernel_device_ms"] = device_time_ms(kernel_alone)
     counter.launches = launches0
     return out
 
@@ -209,26 +247,31 @@ def bound_ms(frame_hw, boxes_np, n_out_elems):
                                  else "operations"), int(nbytes)
 
 
-def k1_case(device, seed, boxes_fn, out_hw):
-    """A seeded 1080x1920 uint8 frame on the card, its boxes (host and card)
-    and the kernel-alone inputs: box parameters and an output buffer."""
+def k1_inputs(device, seed, boxes_fn, frame_hw=FRAME_HW, low=0):
+    """A seeded uint8 frame on ``device`` with values in ``low``..255 and
+    its boxes, on the host and on ``device``."""
     import numpy as np
     import torch
 
-    from busca_tpu_torch.ops.crop import box_params
-
     rng = np.random.RandomState(seed)
-    h, w = FRAME_HW
+    h, w = frame_hw
     frame = torch.from_numpy(
-        rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).to(device)
+        rng.randint(low, 256, (h, w, 3), dtype=np.uint8)).to(device)
     boxes_np = np.asarray(boxes_fn(rng, h, w), np.float32)
-    boxes = torch.from_numpy(boxes_np).to(device)
-    ip, pad = box_params(frame, boxes, True)
-    out = torch.empty((len(boxes_np),) + tuple(out_hw) + (3,), device=device)
-    return frame, boxes_np, boxes, ip, pad, out
+    return frame, boxes_np, torch.from_numpy(boxes_np).to(device)
 
 
-def hold_k1(label, frame, boxes, ip, pad, out, kw, tol, timed):
+def k1_case(device, seed, boxes_fn, out_hw, frame_hw=FRAME_HW, low=0):
+    """:func:`k1_inputs` and the kernel-alone buffers: the output and the
+    scratch."""
+    from busca_tpu_torch.ops import crop_cuda
+
+    frame, boxes_np, boxes = k1_inputs(device, seed, boxes_fn, frame_hw, low)
+    out, scratch = crop_cuda.buffers(len(boxes_np), out_hw, device)
+    return frame, boxes_np, boxes, scratch, out
+
+
+def hold_k1(label, frame, boxes, scratch, out, kw, timed):
     from busca_tpu_torch.ops import crop_cuda
     from busca_tpu_torch.ops.crop import crop_resize_normalize_plain
     from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
@@ -238,12 +281,27 @@ def hold_k1(label, frame, boxes, ip, pad, out, kw, tol, timed):
         label,
         lambda: crop_resize_cuda(frame, boxes, out_hw, **kw),
         lambda: crop_resize_normalize_plain(frame, boxes, out_hw, **kw),
-        lambda: crop_cuda.launch(frame, ip, pad, out, **kw),
-        crop_resize_cuda, tol, out.shape, timed=timed)
+        lambda: crop_cuda.launch(frame, boxes, scratch, out, **kw),
+        crop_resize_cuda, K1_TOL, out.shape, timed=timed)
+
+
+def report_k1(label, result, frame_hw, boxes_np, out):
+    """Adds K1's bound at this case to ``result`` and prints the case's op,
+    kernel-alone, plain and bound times."""
+    result["bound_ms"], bound_by, nbytes = bound_ms(frame_hw, boxes_np,
+                                                    out.numel())
+    print(f"K1 {label}: op {result['ms']:.4f} ms (kernel alone "
+          f"{result['kernel_ms']:.4f} ms), plain {result['plain_ms']:.4f} "
+          f"ms back to back; on the device alone op "
+          f"{result['device_ms']:.4f} ms, kernel "
+          f"{result['kernel_device_ms']:.4f} ms; bound "
+          f"{result['bound_ms']:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB)")
+    return bound_by
 
 
 def phase_k1(device):
-    frame, boxes_np, boxes, ip, pad, out = k1_case(
+    frame, boxes_np, boxes, scratch, out = k1_case(
         device, 1, lambda rng, h, w: smoke_boxes(rng, N_BOXES, h, w),
         CROP_HW)
     result = None
@@ -252,30 +310,22 @@ def phase_k1(device):
             for rgb_output in (False, True):
                 kw = dict(normalize=normalize, bgr_input=True,
                           rgb_output=rgb_output, quantize_uint8=quantize)
-                # one uint8 LSB quantized, scaled by 1/(255*std) when
-                # normalized afterwards
-                tol = QUANT_TOL if quantize else FLOAT_TOL
-                if normalize and quantize:
-                    tol = QUANT_TOL / (255.0 * 0.224)
                 main = kw == K1_MAIN_KW
                 held = hold_k1(f"K1 normalize={normalize} quantize="
                                f"{quantize} rgb={rgb_output}", frame, boxes,
-                               ip, pad, out, kw, tol, timed=main)
+                               scratch, out, kw, timed=main)
                 if main:
                     result = held
-    bms, bound_by, nbytes = bound_ms(FRAME_HW, boxes_np, out.numel())
-    print(f"K1 at N={N_BOXES} {FRAME_HW} -> {CROP_HW}: op {result['ms']:.4f}"
-          f" ms (kernel alone {result['kernel_ms']:.4f} ms), plain "
-          f"{result['plain_ms']:.4f} ms, bound {bms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB); no single PyTorch call computes this "
-          "crop, so no library time")
+    bound_by = report_k1(f"at N={N_BOXES} {FRAME_HW} -> {CROP_HW}", result,
+                         FRAME_HW, boxes_np, out)
+    print("K1: no single PyTorch call computes this crop, so no library "
+          "time")
     return {
         "name": "crop_resize (K1)",
         "route": "cuda",
         "source": "busca_tpu_torch/csrc/crop_resize.cu",
         "replaces": "busca_tpu/ops/crop_pallas.py:50",
         **result,
-        "bound_ms": bms,
         "bound_by": bound_by,
         "library_ms": None,
     }
@@ -284,18 +334,46 @@ def phase_k1(device):
 def phase_k1_letterbox(device):
     """K1 at the TransCenter detector's letterbox shape: one full-frame box,
     1080x1920 -> 612x1088, quantized, not normalized."""
-    frame, boxes_np, boxes, ip, pad, out = k1_case(
+    frame, boxes_np, boxes, scratch, out = k1_case(
         device, 3, lambda rng, h, w: [[0.0, 0.0, float(w), float(h)]],
         LETTERBOX_HW)
     result = hold_k1(f"K1 at the letterbox shape {FRAME_HW} -> "
-                     f"{LETTERBOX_HW}", frame, boxes, ip, pad, out,
-                     K1_MAIN_KW, QUANT_TOL, timed=True)
-    result["bound_ms"], bound_by, nbytes = bound_ms(FRAME_HW, boxes_np,
-                                                    out.numel())
-    print(f"K1 letterbox: op {result['ms']:.4f} ms (kernel alone "
-          f"{result['kernel_ms']:.4f} ms), plain {result['plain_ms']:.4f} "
-          f"ms, bound {result['bound_ms']:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB)")
+                     f"{LETTERBOX_HW}", frame, boxes, scratch, out,
+                     K1_MAIN_KW, timed=True)
+    report_k1("letterbox", result, FRAME_HW, boxes_np, out)
+    return result
+
+
+def pad_path_boxes(rng, h, w):
+    """Boxes across each edge and corner of the frame, one covering the
+    frame and more, one inside, one wholly outside."""
+    return [
+        [-120.5, 0.37 * h, 180.2, 0.6 * h],           # left edge
+        [0.39 * w, -90.6, 0.47 * w + 0.9, 400.1],     # top edge
+        [w - 140.4, 0.55 * h, w + 110.8, 0.79 * h],   # right edge
+        [0.65 * w, h - 260.3, 0.7 * w + 0.6, h + 140.9],  # bottom edge
+        [-50.5, -60.5, 250.5, 500.5],                 # top-left corner
+        [w - 240.0, h - 360.0, w + 60.0, h + 40.0],   # bottom-right corner
+        [-100.0, -50.0, w + 100.0, h + 50.0],         # covers the frame
+        [0.26 * w + 0.5, 0.46 * h + 0.5, 0.31 * w + 0.5, 0.69 * h + 0.5],
+        [-400.0, 100.0, -10.0, 300.0],                # wholly outside
+    ]
+
+
+def phase_k1_pad_path(device):
+    """K1's pad sums at 2160x3840: every edge crossed, and a box covering the
+    frame whose region total passes 2**32; exact against the plain
+    version."""
+    import torch
+
+    frame, boxes_np, boxes, scratch, out = k1_case(
+        device, 4, pad_path_boxes, CROP_HW, frame_hw=PAD_FRAME_HW, low=200)
+    total = int(frame.to(torch.int64).sum())
+    check(total > 2 ** 32, f"the covering box's total {total} <= 2**32")
+    result = hold_k1(f"K1 pad path {PAD_FRAME_HW} -> {CROP_HW}, "
+                     f"{len(boxes_np)} boxes, covering total {total}", frame,
+                     boxes, scratch, out, K1_MAIN_KW, timed=True)
+    report_k1("pad path", result, PAD_FRAME_HW, boxes_np, out)
     return result
 
 
@@ -378,7 +456,9 @@ def phase_k2(device):
         local_tap_sum_cuda.launches = launches0
         bms, bound_by, nbytes, ops = k2_bound_ms(level_hw, c, heads, dils)
         print(f"K2 over the levels at {name}: op {held['ms']:.4f} ms (kernel "
-              f"alone {held['kernel_ms']:.4f} ms), plain "
+              f"alone {held['kernel_ms']:.4f} ms; on the device alone "
+              f"{held['device_ms']:.4f} / {held['kernel_device_ms']:.4f} "
+              f"ms), plain "
               f"{held['plain_ms']:.4f} ms, the chain it replaces (interpolate"
               f" + stack + K2) {chain_ms:.4f} ms, bound {bms:.4f} ms by "
               f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
@@ -791,6 +871,7 @@ def main() -> int:
         phase_card()
         k1 = phase_k1(device)
         k1["letterbox"] = phase_k1_letterbox(device)
+        k1["pad_path"] = phase_k1_pad_path(device)
         k2 = phase_k2(device)
         engine = phase_association(device)
         k1_byte = phase_main_path(device, engine)

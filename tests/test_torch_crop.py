@@ -144,6 +144,47 @@ def test_pad_mean_is_exact_at_1080p():
         assert got == exact
 
 
+@pytest.mark.parametrize("quantize", [True, False])
+def test_pad_value_unused_when_the_cutout_is_inside(monkeypatch, quantize):
+    """The premise of K1's skipped pad sums: for a box whose floor/ceil
+    cutout lies inside the frame, the pad value meets only taps of weight
+    exactly 0, so a pad of 0 or 255 gives the unpatched output.  300 seeded
+    boxes with fractional coordinates and sizes 1-300, the full-frame
+    (letterbox) box and 1-pixel boxes.  The last box (x1 = -0.5) leaves the
+    frame and must change, which shows the test can fail."""
+    rng = np.random.RandomState(10)
+    h, w = 320, 400
+    frame = torch.from_numpy(rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    n = 300
+    bw, bh = rng.uniform(1, 300, n), rng.uniform(1, 300, n)
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    boxes = np.concatenate([
+        np.stack([x1, y1, x1 + bw, y1 + bh], 1),
+        [[0.0, 0.0, w, h], [12.2, 30.9, 12.6, 31.1], [w - 0.7, h - 0.2, w, h],
+         [0.0, 0.0, 1.0, 1.0], [-0.5, 10.2, 40.3, 60.7]],
+    ]).astype(np.float32)
+    boxes = torch.from_numpy(boxes)
+    ip, _ = tcrop.box_params(frame, boxes, quantize)
+    x1i, y1i, wc, hc = ip[:, 0], ip[:, 1], ip[:, 2], ip[:, 3]
+    inside = (x1i >= 0) & (y1i >= 0) & (x1i + wc <= w) & (y1i + hc <= h)
+    assert bool(inside[:-1].all()) and not bool(inside[-1])
+    assert bool(ip[:, 8].all())  # every box is valid
+
+    want = tcrop.crop_resize_plain(frame, boxes, OUT_HW, quantize)
+    box_params = tcrop.box_params
+    got = {}
+    for pad in (0.0, 255.0):
+        def patched(frame, boxes, quantize_uint8, pad=pad):
+            ip, pad_val = box_params(frame, boxes, quantize_uint8)
+            return ip, torch.full_like(pad_val, pad)
+
+        monkeypatch.setattr(tcrop, "box_params", patched)
+        got[pad] = tcrop.crop_resize_plain(frame, boxes, OUT_HW, quantize)
+    for pad, out in got.items():
+        assert torch.equal(out[:-1], want[:-1]), pad
+    assert not torch.equal(got[0.0][-1], got[255.0][-1])
+
+
 def test_integral_image_is_exact_int64():
     frame = np.full((300, 400, 3), 255, np.uint8)
     ii = tcrop.integral_image(torch.from_numpy(frame))

@@ -58,6 +58,110 @@ def test_k1_matches_plain(cuda, normalize, rgb_output, quantize, bgr_input):
     assert torch.equal(got, want)
 
 
+MAIN_KW = dict(normalize=False, bgr_input=True, rgb_output=False)
+
+
+def _held(frame, boxes, out_hw, **kw):
+    """K1 against the plain version, exactly, with one launch counted."""
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    before = crop_resize_cuda.launches
+    got = crop_resize_cuda(frame, boxes, out_hw, **kw)
+    want = crop_resize_normalize_plain(frame, boxes, out_hw, **kw)
+    torch.cuda.synchronize()
+    assert crop_resize_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k1_pad_path_4k_exact(cuda, quantize):
+    """The pad sums at 2160x3840 with values 200-255: boxes across each edge
+    and corner, and one covering the frame, whose region total passes
+    2**32."""
+    h, w = 2160, 3840
+    rng = np.random.RandomState(12)
+    frame = torch.from_numpy(
+        rng.randint(200, 256, (h, w, 3), dtype=np.uint8)).to(cuda)
+    assert int(frame.to(torch.int64).sum()) > 2 ** 32
+    boxes = torch.tensor([
+        [-120.5, 800.3, 180.2, 1300.7],         # left edge
+        [1500.2, -90.6, 1800.9, 400.1],         # top edge
+        [3700.4, 1200.2, 3950.8, 1700.5],       # right edge
+        [2500.1, 1900.3, 2700.6, 2300.9],       # bottom edge
+        [-50.5, -60.5, 250.5, 500.5],           # top-left corner
+        [3600.0, 1800.0, 3900.0, 2200.0],       # bottom-right corner
+        [-100.0, -50.0, w + 100.0, h + 50.0],   # covers the frame
+        [1000.5, 1000.5, 1200.5, 1500.5],       # inside
+    ], dtype=torch.float32, device=cuda)
+    _held(frame, boxes, (384, 128), quantize_uint8=quantize, **MAIN_KW)
+
+
+@pytest.mark.parametrize("out_hw", [(384, 128), (612, 1088), (37, 30)])
+def test_k1_boxes_inside_the_frame_exact(cuda, out_hw):
+    """Boxes whose cutout lies inside the frame (no pad sum): the letterbox
+    box, 1-pixel boxes and seeded fractional boxes; a ragged output width
+    (30) takes the scalar stores."""
+    h, w = 1080, 1920
+    rng = np.random.RandomState(13)
+    frame = torch.from_numpy(
+        rng.randint(0, 256, (h, w, 3), dtype=np.uint8)).to(cuda)
+    bw, bh = rng.uniform(1, 300, 24), rng.uniform(1, 600, 24)
+    x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+    boxes = np.concatenate([
+        np.stack([x1, y1, x1 + bw, y1 + bh], 1),
+        [[0.0, 0.0, w, h], [500.5, 200.2, 500.9, 200.7],
+         [0.0, 0.0, 1.0, 1.0], [w - 0.5, h - 0.5, w, h]],
+    ]).astype(np.float32)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    for quantize in (True, False):
+        _held(frame, boxes, out_hw, quantize_uint8=quantize, **MAIN_KW)
+
+
+def test_k1_far_boxes_exact(cuda):
+    """Boxes at +-1e5: covering the frame, across one edge, wholly
+    outside."""
+    frame, _ = _inputs(cuda, n=2)
+    boxes = torch.tensor([
+        [-1e5, -1e5, 1e5, 1e5],
+        [-1e5, 100.5, 50.5, 300.5],
+        [300.5, -1e5, 400.5, 1e5],
+        [1e5, 1e5, 1e5 + 80.0, 1e5 + 200.0],
+    ], dtype=torch.float32, device=cuda)
+    for quantize in (True, False):
+        _held(frame, boxes, (384, 128), quantize_uint8=quantize, **MAIN_KW)
+
+
+def test_k1_no_boxes_launches_nothing(cuda):
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    frame, boxes = _inputs(cuda, n=4)
+    before = crop_resize_cuda.launches
+    out = crop_resize_cuda(frame, boxes[:0], (384, 128))
+    torch.cuda.synchronize()
+    assert out.shape == (0, 384, 128, 3) and out.is_cuda
+    assert crop_resize_cuda.launches == before
+
+
+def test_k1_counts_one_launch_per_call(cuda):
+    """One count per op call (the op's two kernels count once), and one per
+    kernel-alone launch."""
+    from busca_tpu_torch.ops import crop_cuda
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    frame, boxes = _inputs(cuda, n=8)
+    before = crop_resize_cuda.launches
+    for _ in range(3):
+        crop_resize_cuda(frame, boxes, (64, 32), **MAIN_KW)
+    assert crop_resize_cuda.launches == before + 3
+    out, scratch = crop_cuda.buffers(8, (64, 32), cuda)
+    crop_cuda.launch(frame, boxes, scratch, out, quantize_uint8=True,
+                     **MAIN_KW)
+    torch.cuda.synchronize()
+    assert crop_resize_cuda.launches == before + 4
+    assert torch.equal(out, crop_resize_normalize_plain(
+        frame, boxes, (64, 32), quantize_uint8=True, **MAIN_KW))
+
+
 def test_k1_validates_inputs(cuda):
     from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
 
