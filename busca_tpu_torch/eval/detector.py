@@ -1,20 +1,29 @@
 """Live detector-in-the-loop evaluation: frame -> detector -> NMS -> tracker
-(port of the TransCenter part of ``busca_tpu.eval.detector``).
+(port of ``busca_tpu.eval.detector``: YOLOX and TransCenter).
 
 Per frame:
 
-1. preproc: aspect-preserving letterbox resize onto a zero canvas of the test
-   size through the crop op (kernel K1 on the card), BGR -> RGB, ImageNet
-   normalization;
-2. the TransCenter forward over the current and the previous canvas with the
+1. preproc: aspect-preserving letterbox resize through the crop op (kernel
+   K1 on the card) onto a canvas of the test size, filled with 114 for
+   YOLOX and 0 for TransCenter; BGR -> RGB and ImageNet normalization;
+2. the detector forward: YOLOX (CSPDarknet + PAFPN + decoupled head, grid
+   decode) or TransCenter over the current and the previous canvas with the
    tracker's positions as a prior heatmap (kernel K2 in every decoder
-   attention on the card), ``generic_decode``;
+   attention on the card);
 3. score filter and static-size NMS on the device;
 4. the uint8 BGR canvas handed to the tracker for BUSCA crops (the
    reference's ``bboxes /= scale`` + crops at ``bboxes * scale`` scheme).
 
-YOLOX (``YoloxDetector``, the ``put_frame``/``detect_async`` pipelining) and
-CenterTrack are not ported yet (ROADMAP.md Queue 1).
+:class:`YoloxDetector` splits a frame into ``put_frame`` (a pinned host copy
+and an upload on a copy stream), ``detect_async`` (the step, enqueued
+without any host sync, and non-blocking copies of its fixed-size result
+rows into pinned buffers) and ``wait``, so that
+:func:`track_frames_with_detector` enqueues frame t+1 before it waits for
+frame t.  Its canvas stays on the card for the tracker's crops.
+TransCenter feeds the tracker's state back and cannot pipeline.
+
+Lockstep batch-B (``_make_batch_step``, ``track_sequences_lockstep``) is
+ROADMAP item 21; CenterTrack is item 18.
 """
 
 from __future__ import annotations
@@ -36,16 +45,324 @@ INV_255 = float(np.float32(1.0) / np.float32(255.0))
 # IoU threshold of the detections' NMS (the YOLOX postprocess default the
 # reference pipes TransCenter's output through, mot_evaluator.py:160)
 NMS_IOU = 0.7
+# YOLOX's letterbox fill (the reference preproc, exps/*.py ``preproc``)
+PAD_VALUE = 114
 
 
 @dataclasses.dataclass
 class DetectorOutput:
-    """One frame's detections, in detector (resized) coordinates."""
+    """One frame's detections, in detector (resized) coordinates.
+
+    ``image`` is the uint8 BGR canvas: :class:`YoloxDetector` leaves it on
+    its device (a tensor), where the tracker's BUSCA crops read it, as
+    busca_tpu leaves a device array; :class:`TransCenterDetector` returns a
+    host copy (numpy)."""
 
     boxes_tlbr: np.ndarray  # [N, 4] detector coords
     scores: np.ndarray  # [N]
-    image: np.ndarray  # [test_h, test_w, 3] uint8 BGR canvas, on the host
+    image: object  # [test_h, test_w, 3] uint8 BGR canvas
     scale: float  # detector coords = original coords * scale
+
+
+def rows_to_detector_output(out, valid, image, scale) -> DetectorOutput:
+    """Postprocessed rows ``[K, 7]`` and their ``valid`` mask (host arrays)
+    -> :class:`DetectorOutput`: columns 0-3 are the tlbr boxes, the tracker's
+    score is obj_conf * cls_conf (byte_tracker.py:230-234)."""
+    rows = np.asarray(out)[np.asarray(valid)]
+    return DetectorOutput(
+        boxes_tlbr=rows[:, :4].astype(np.float64),
+        scores=(rows[:, 4] * rows[:, 5]).astype(np.float64),
+        image=image,
+        scale=scale,
+    )
+
+
+def letterbox(frame: torch.Tensor, test_size: Tuple[int, int], fill: int,
+              boxes: dict) -> Tuple[torch.Tensor, float]:
+    """uint8 BGR frame ``[H, W, 3]`` -> the uint8 BGR canvas ``[test_h,
+    test_w, 3]`` (the frame resized by ``r = min(test_h / H, test_w / W)``
+    through the crop op, INTER_LINEAR and rounded, at the top left; ``fill``
+    elsewhere) and ``r``.  ``boxes`` caches the full-frame box per frame
+    size and device; it is made with device ops, so no call copies from the
+    host."""
+    fh, fw = int(frame.shape[0]), int(frame.shape[1])
+    th, tw = test_size
+    r = min(th / fh, tw / fw)
+    rh, rw = int(fh * r), int(fw * r)
+    key = (fh, fw, str(frame.device))
+    if key not in boxes:
+        box = torch.zeros((1, 4), dtype=torch.float32, device=frame.device)
+        box[0, 2] = float(fw)
+        box[0, 3] = float(fh)
+        boxes[key] = box
+    from busca_tpu_torch.ops.crop import crop_resize_normalize
+
+    resized = crop_resize_normalize(
+        frame, boxes[key], out_hw=(rh, rw), normalize=False, bgr_input=True,
+        rgb_output=False, quantize_uint8=True,
+    )[0]
+    canvas = torch.full((th, tw, 3), fill, dtype=torch.uint8,
+                        device=frame.device)
+    # the quantized crop holds integers in 0..255: the cast is exact
+    canvas[:rh, :rw] = resized.to(torch.uint8)
+    return canvas, r
+
+
+def normalize_canvas(canvas: torch.Tensor, mean: torch.Tensor,
+                     std: torch.Tensor) -> torch.Tensor:
+    """uint8 BGR canvas ``[..., 3]`` -> float32 RGB ``(x / 255 - mean) /
+    std``, dividing by 255 as XLA does (times the float32 reciprocal).  The
+    canvas holds integers, so this equals the reference's normalization of
+    its float canvas."""
+    x = canvas.to(torch.float32).flip(-1) * INV_255
+    return (x - mean) / std
+
+
+@dataclasses.dataclass
+class _Upload:
+    """A frame on its way to the card: the device tensor, the event its
+    copy records, and the pinned host buffer the copy reads."""
+
+    tensor: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+    pinned: Optional[torch.Tensor]
+
+
+@dataclasses.dataclass
+class _Pending:
+    """An enqueued step: the result rows, ``valid`` and the NMS's
+    ``converged`` flag (pinned host copies on the card), the event recorded
+    after their copies, the device canvas, the scale, and every buffer the
+    step or its copies still read."""
+
+    rows: torch.Tensor
+    valid: torch.Tensor
+    converged: torch.Tensor
+    done: Optional[torch.cuda.Event]
+    canvas: torch.Tensor
+    scale: float
+    pred: torch.Tensor  # the decoded rows, for a frame whose NMS needs more
+    held: tuple
+
+
+class YoloxDetector:
+    """YOLOX wrapped for the per-frame tracking loop.
+
+    Args:
+      config: :class:`~busca_tpu_torch.models.yolox.YoloxConfig`
+        (``YoloxConfig.size("x", num_classes=1)`` for the ByteTrack MOT
+        detector).
+      state_dict: the model's weights in the official key layout (an
+        official ``.pth``, or ``yolox_state_dict_from_flax``); None = random
+        weights from a ``torch.Generator`` seeded with ``seed``.
+      test_size: (H, W) detector input; the reference MOT17 uses (800, 1440).
+      conf_thresh / nms_thresh: postprocess thresholds (exp.test_conf /
+        exp.nmsthre).
+      device: ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        config,
+        state_dict=None,
+        test_size: Tuple[int, int] = (800, 1440),
+        conf_thresh: float = 0.1,
+        nms_thresh: float = 0.7,
+        max_outputs: int = 256,
+        pre_nms_topk: int = 1024,
+        device="cuda",
+        seed: int = 0,
+    ):
+        from busca_tpu_torch.models.yolox import YOLOX
+        from busca_tpu_torch.utils.device import resolve_device
+
+        self.config = config
+        self.device = resolve_device(device)
+        model = YOLOX(config)
+        if state_dict is None:
+            model.init_weights(torch.Generator().manual_seed(seed))
+        else:
+            load_yolox_state_dict(model, state_dict)
+        self.model = model.to(self.device).eval()
+        self.test_size = tuple(test_size)
+        self.conf_thresh = float(conf_thresh)
+        self.nms_thresh = float(nms_thresh)
+        self.max_outputs = int(max_outputs)
+        self.pre_nms_topk = int(pre_nms_topk)
+        # frames whose NMS needed more than the step's fixed-point steps
+        # (ops/nms.py NMS_STEPS) and was finished in wait()
+        self.nms_fallbacks = 0
+        self._mean = torch.tensor(IMAGENET_MEAN_RGB, device=self.device)
+        self._std = torch.tensor(IMAGENET_STD_RGB, device=self.device)
+        self._boxes = {}
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+
+    @classmethod
+    def build(cls, size: str = "x", ckpt_path: Optional[str] = None,
+              num_classes: int = 1, **kw) -> "YoloxDetector":
+        """Detector from a size name and an optional checkpoint: an official
+        YOLOX ``.pth`` (``{"model": state_dict}``) or a busca_tpu ``.npz``;
+        None = random weights."""
+        from busca_tpu_torch.models.yolox import YoloxConfig
+
+        config = YoloxConfig.size(size, num_classes=num_classes)
+        state = None
+        if ckpt_path:
+            if ckpt_path.endswith(".npz"):
+                from busca_tpu_torch.models.checkpoint import load_params_npz
+                from busca_tpu_torch.models.convert import (
+                    yolox_state_dict_from_flax,
+                )
+
+                state = yolox_state_dict_from_flax(load_params_npz(ckpt_path))
+            else:
+                state = torch.load(ckpt_path, map_location="cpu",
+                                   weights_only=False)
+                for envelope in ("model_state_dict", "state_dict", "model"):
+                    if isinstance(state.get(envelope), dict):
+                        state = state[envelope]
+                state = {(k[len("module."):] if k.startswith("module.")
+                          else k): v for k, v in state.items()}
+        return cls(config, state, **kw)
+
+    # ------------------------------------------------------------ device --
+    def prep(self, frame: torch.Tensor) -> Tuple[torch.Tensor, float]:
+        """uint8 BGR frame ``[H, W, 3]`` on the device -> the uint8 BGR
+        letterbox canvas (114 fill) and its scale."""
+        return letterbox(frame, self.test_size, PAD_VALUE, self._boxes)
+
+    @torch.no_grad()
+    def forward(self, canvas: torch.Tensor) -> torch.Tensor:
+        """The canvas -> decoded rows ``[N, 5 + C]``."""
+        x = normalize_canvas(canvas, self._mean, self._std)
+        return self.model(x.permute(2, 0, 1)[None])[0]
+
+    @torch.no_grad()
+    def step(self, canvas: torch.Tensor):
+        """The device step, enqueued without a host sync: forward, decode
+        and postprocess.  Returns ``(rows [max_outputs, 7], valid,
+        converged, pred)``."""
+        from busca_tpu_torch.ops.nms import NMS_STEPS, yolox_postprocess
+
+        pred = self.forward(canvas)
+        rows, valid, converged = yolox_postprocess(
+            pred, self.config.num_classes, self.conf_thresh,
+            self.nms_thresh, self.max_outputs, self.pre_nms_topk,
+            nms_steps=NMS_STEPS)
+        return rows, valid, converged, pred
+
+    def calibrate_random_weights(self, frames_bgr, obj_bias: float,
+                                 cls_bias: float,
+                                 box_hw: Tuple[float, float]):
+        """Calibrate random weights on uint8 BGR frames (smoke runs and
+        tests): :meth:`~busca_tpu_torch.models.yolox.YOLOX.
+        calibrate_random_weights` on their normalized canvases as one batch;
+        ``box_hw`` in canvas pixels."""
+        x = torch.stack([normalize_canvas(
+            self.prep(torch.as_tensor(np.asarray(f)).to(self.device))[0],
+            self._mean, self._std) for f in frames_bgr])
+        self.model.calibrate_random_weights(x.permute(0, 3, 1, 2), obj_bias,
+                                            cls_bias, box_hw)
+        return self
+
+    # --------------------------------------------------------------- api --
+    def put_frame(self, frame_bgr) -> _Upload:
+        """Start a uint8 BGR frame's upload: a pinned host copy, then a
+        non-blocking copy on the detector's copy stream that records an
+        event; :meth:`detect_async` waits on it on the device.  On the CPU
+        the frame is wrapped as it is."""
+        host = torch.from_numpy(np.ascontiguousarray(frame_bgr))
+        if self._copy_stream is None:
+            return _Upload(host, None, None)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        with torch.cuda.stream(self._copy_stream):
+            dev = pinned.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return _Upload(dev, ready, pinned)
+
+    def detect_async(self, frame) -> _Pending:
+        """Enqueue the step for one frame (a :meth:`put_frame` upload, a
+        host array or a tensor on the device) and the non-blocking copies of
+        its result into pinned buffers; returns a handle for :meth:`wait`.
+        On the card nothing here waits for the device."""
+        if not isinstance(frame, _Upload):
+            if torch.is_tensor(frame) and frame.device == self.device:
+                frame = _Upload(frame, None, None)
+            else:
+                frame = self.put_frame(np.asarray(frame))
+        stream = (torch.cuda.current_stream(self.device)
+                  if self._copy_stream is not None else None)
+        if frame.ready is not None:
+            stream.wait_event(frame.ready)
+            # the copy stream allocated it; the compute stream reads it
+            frame.tensor.record_stream(stream)
+        canvas, r = self.prep(frame.tensor)
+        rows, valid, converged, pred = self.step(canvas)
+        if stream is None:
+            return _Pending(rows, valid, converged, None, canvas, r, pred,
+                            (frame,))
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (rows, valid, converged)]
+        for h, t in zip(host, (rows, valid, converged)):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return _Pending(*host, done, canvas, r, pred,
+                        (frame, rows, valid, converged))
+
+    def wait(self, handle: _Pending) -> DetectorOutput:
+        """Wait for a :meth:`detect_async` handle's copies and build the
+        :class:`DetectorOutput`; its ``image`` is the device canvas.  A frame
+        whose NMS had not reached its fixed point in the enqueued steps is
+        finished here with the iterated NMS (the same fixed point)."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        rows, valid = handle.rows, handle.valid
+        if not bool(handle.converged):
+            from busca_tpu_torch.ops.nms import yolox_postprocess
+
+            self.nms_fallbacks += 1
+            with torch.no_grad():
+                rows, valid = yolox_postprocess(
+                    handle.pred, self.config.num_classes, self.conf_thresh,
+                    self.nms_thresh, self.max_outputs, self.pre_nms_topk)
+            rows, valid = rows.cpu(), valid.cpu()
+        return rows_to_detector_output(rows.numpy(), valid.numpy(),
+                                       handle.canvas, handle.scale)
+
+    def detect(self, frame) -> DetectorOutput:
+        """One uint8 BGR frame (original resolution), or a
+        :meth:`put_frame` upload."""
+        return self.wait(self.detect_async(frame))
+
+
+def load_yolox_state_dict(model: torch.nn.Module, state_dict):
+    """Copy an official-layout YOLOX state dict into ``model``.  Every
+    parameter and running statistic must be present (``num_batches_tracked``
+    may be absent); unknown keys raise."""
+    state_dict = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+                  else v for k, v in state_dict.items()}
+    missing, unexpected = model.load_state_dict(state_dict, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"YOLOX checkpoint mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return model
+
+
+def build_yolox_detector(size: str = "x", ckpt=None,
+                         test_size=(800, 1440), conf_thresh=0.01,
+                         nms_thresh=0.7, device="cuda",
+                         seed: int = 0) -> YoloxDetector:
+    """A YOLOX detector of ``size`` (tiny, s, m, l, x) with one class, the
+    ByteTrack MOT detector, for the eval CLI: ``YoloxDetector.build``."""
+    return YoloxDetector.build(
+        size=size, ckpt_path=ckpt, num_classes=1, test_size=test_size,
+        conf_thresh=conf_thresh, nms_thresh=nms_thresh, device=device,
+        seed=seed)
 
 
 class TransCenterDetector:
@@ -95,6 +412,7 @@ class TransCenterDetector:
         self.out_thresh = float(out_thresh)
         self._mean = torch.tensor(IMAGENET_MEAN_RGB, device=self.device)
         self._std = torch.tensor(IMAGENET_STD_RGB, device=self.device)
+        self._boxes = {}
         self.reset()
 
     def reset(self):
@@ -116,24 +434,9 @@ class TransCenterDetector:
 
     def prep(self, frame: torch.Tensor) -> Tuple[torch.Tensor, float]:
         """uint8 BGR frame ``[H, W, 3]`` on the device -> the uint8 BGR
-        letterbox canvas ``[test_h, test_w, 3]`` and its scale."""
-        from busca_tpu_torch.ops.crop import crop_resize_normalize
-
-        fh, fw = int(frame.shape[0]), int(frame.shape[1])
-        th, tw = self.test_size
-        r = min(th / fh, tw / fw)
-        rh, rw = int(fh * r), int(fw * r)
-        box = torch.tensor([[0.0, 0.0, float(fw), float(fh)]],
-                           device=frame.device)
-        resized = crop_resize_normalize(
-            frame, box, out_hw=(rh, rw), normalize=False, bgr_input=True,
-            rgb_output=False, quantize_uint8=True,
-        )[0]
-        canvas = torch.zeros((th, tw, 3), dtype=torch.uint8,
-                             device=frame.device)
-        # the quantized crop holds integers in 0..255: the cast is exact
-        canvas[:rh, :rw] = resized.to(torch.uint8)
-        return canvas, r
+        letterbox canvas ``[test_h, test_w, 3]`` (zero fill) and its
+        scale."""
+        return letterbox(frame, self.test_size, 0, self._boxes)
 
     @torch.no_grad()
     def step(self, canvas: torch.Tensor, pre_canvas: torch.Tensor,
@@ -147,8 +450,7 @@ class TransCenterDetector:
         cfg = self.config
 
         def norm(c_u8):
-            x = c_u8.to(torch.float32).flip(-1) * INV_255
-            return (x - self._mean) / self._std
+            return normalize_canvas(c_u8, self._mean, self._std)
 
         out = self.model(norm(canvas)[None], norm(pre_canvas)[None],
                          pre_hm[None])
@@ -267,6 +569,12 @@ def track_frames_with_detector(
     frame, when the tracker exports them.  ``det_log``, when given, collects
     ``(frame_id, boxes_tlbr_orig, scores)`` per frame.
 
+    A detector with ``put_frame`` gets frame t+1's upload started before
+    frame t is detected; one with ``detect_async`` (and no feedback) is
+    pipelined: frame t+1's step is enqueued before the loop waits for frame
+    t, so the tracker's host work for frame t runs while the device computes
+    frame t+1.  ``detector_s`` is then the time spent waiting.
+
     Returns a :class:`~busca_tpu_torch.eval.runner.SequenceResult` whose
     ``stage_times`` split the wall time into ``detector_s`` and
     ``tracker_s``.
@@ -279,12 +587,32 @@ def track_frames_with_detector(
     feedback = getattr(detector, "uses_feedback", False) and hasattr(
         tracker, "get_detector_positions"
     )
+    can_prefetch = hasattr(detector, "put_frame")
+    # a feedback detector's input for t+1 depends on the tracker after t
+    can_pipeline = hasattr(detector, "detect_async") and not feedback
     results = []
     det_s = trk_s = 0.0
     t0 = time.perf_counter()
-    for idx, frame in enumerate(frames):
+    it = iter(frames)
+    pending = next(it, None)
+    if pending is not None and can_prefetch:
+        pending = detector.put_frame(pending)
+    if pending is not None and can_pipeline:
+        pending = detector.detect_async(pending)
+    idx = -1
+    while pending is not None:
+        idx += 1
+        frame = pending
+        # start the next frame's upload (and step) before this frame's wait
+        pending = next(it, None)
+        if pending is not None and can_prefetch:
+            pending = detector.put_frame(pending)
+        if pending is not None and can_pipeline:
+            pending = detector.detect_async(pending)
         t_det = time.perf_counter()
-        if feedback:
+        if can_pipeline:
+            det = detector.wait(frame)
+        elif feedback:
             det = detector.detect(
                 frame, current_pos=tracker.get_detector_positions()
             )

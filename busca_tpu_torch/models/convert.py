@@ -12,7 +12,10 @@ LayerNorm ``scale`` becomes ``weight``.
 :func:`load_checkpoint` reads a ``.npz`` of flattened flax variables or a
 reference ``.pth`` into a :class:`~busca_tpu_torch.models.busca.BuscaModel`.
 :func:`transcenter_state_dict_from_flax` does the same for TransCenter,
-whose port keeps the flax module names.
+whose port keeps the flax module names, and
+:func:`yolox_state_dict_from_flax` for YOLOX (the inverse of
+``busca_tpu.models.yolox.convert_yolox_state_dict``: the official YOLOX key
+layout).
 """
 
 from __future__ import annotations
@@ -138,17 +141,66 @@ def transcenter_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+# The ReID classifier heads: unused at inference, and sized by the ReID
+# training set, so a reference checkpoint's may not match the config's
+# ``reid_num_classes``.  busca_tpu drops them (``convert_busca_state_dict(...,
+# ignore_reid_fc=True)``, busca/network.py:445-448).
+_REID_HEADS = ("reid_encoder.model.fc.", "reid_encoder.model.fc_person.")
+# The learned tokens: a checkpoint that lacks one leaves it at its initial
+# value (busca_tpu's ``merge_params`` overlay, busca/network.py:465-467).
+_TOKENS = ("cls_token", "sep_token", "non_token", "bad_token")
+
+
+_YOLOX_SEGMENTS = (
+    (r"dark(\d)_conv", r"dark\1.0"),
+    (r"dark5_spp", "dark5.1"),
+    (r"dark5_csp", "dark5.2"),
+    (r"dark(\d)_csp", r"dark\1.1"),
+    (r"m_(\d+)", r"m.\1"),
+    (r"stem_(\d)", r"stems.\1"),
+    (r"(cls|reg)_conv_(\d)_(\d)", r"\1_convs.\2.\3"),
+    (r"(cls|reg|obj)_pred_(\d)", r"\1_preds.\2"),
+)
+
+
+def _yolox_segment(seg: str) -> str:
+    for pattern, repl in _YOLOX_SEGMENTS:
+        if re.fullmatch(pattern, seg):
+            return re.sub(pattern, repl, seg)
+    return seg
+
+
+def yolox_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
+    """busca_tpu YOLOX variables (``{'params': ..., 'batch_stats': ...}``
+    as numpy) -> the port's (= the official YOLOX) state dict; the inverse
+    of ``busca_tpu.models.yolox.convert_yolox_state_dict``.  Convolution
+    kernels go from HWIO to OIHW."""
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(coll, {})):
+            leaf = path[-1]
+            if leaf == "kernel":
+                value, leaf = value.transpose(3, 2, 0, 1), "weight"
+            key = ".".join([_yolox_segment(s) for s in path[:-1]] + [leaf])
+            out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
 def load_into(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]):
-    """Copy ``state_dict`` into ``model``.  Every parameter except the ReID
-    classifier head must be present (the head is unused at inference and
-    ``ignore_reid_fc`` checkpoints omit it); BN running statistics and
+    """Copy ``state_dict`` into ``model`` as busca_tpu overlays a checkpoint
+    on its initial variables (``eval/run.py::build_engine``).  The ReID
+    classifier heads are dropped, whatever their size, and keep their
+    initial values; so do the learned tokens when the checkpoint lacks them.
+    Every other parameter must be present; BN running statistics and
     bookkeeping buffers may be absent.  Unknown keys raise."""
+    state_dict = {k: v for k, v in state_dict.items()
+                  if not k.startswith(_REID_HEADS)}
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     params = {name for name, _ in model.named_parameters()}
-    absent = [k for k in missing if k in params and ".fc." not in k]
+    absent = [k for k in missing if k in params
+              and not k.startswith(_REID_HEADS) and k not in _TOKENS]
     unexpected = [k for k in unexpected
-                  if not k.endswith(("num_batches_tracked", "pad_token"))
-                  and ".fc_person." not in k]
+                  if not k.endswith(("num_batches_tracked", "pad_token"))]
     if absent or unexpected:
         raise KeyError(f"checkpoint mismatch: missing {absent}, "
                        f"unexpected {unexpected}")

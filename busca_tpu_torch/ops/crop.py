@@ -203,6 +203,15 @@ def crop_resize_normalize_plain(
     return crops
 
 
+def check_card_frame(frame: torch.Tensor) -> None:
+    """The op's contract for a frame on the card: ``[H, W, 3]`` uint8, what
+    K1 reads.  Raises ``ValueError`` otherwise (a float frame is accepted on
+    the CPU only, by the plain version)."""
+    if frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3:
+        raise ValueError(f"a frame on the card must be [H, W, 3] uint8, got "
+                         f"{tuple(frame.shape)} {frame.dtype}")
+
+
 def crop_resize_normalize(
     frame: torch.Tensor,
     boxes: torch.Tensor,
@@ -215,8 +224,9 @@ def crop_resize_normalize(
     """Extract (normalized) ReID crops for a batch of boxes from one frame.
 
     Args:
-      frame: ``[H, W, 3]`` uint8 (or float) frame, BGR unless ``bgr_input``
-        is False.
+      frame: ``[H, W, 3]`` frame, BGR unless ``bgr_input`` is False: uint8
+        on the card (:func:`check_card_frame` raises otherwise); uint8 or
+        float on the CPU.
       boxes: ``[N, 4]`` ltrb boxes in frame coordinates, each coordinate
         within +-2**30 (there the kernel's float -> int conversion agrees
         with the plain version's; tracker boxes lie within a few frame
@@ -236,5 +246,6 @@ def crop_resize_normalize(
     if frame.is_cuda:
         from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
 
+        check_card_frame(frame)
         return crop_resize_cuda(frame, boxes, out_hw, **kw)
     return crop_resize_normalize_plain(frame, boxes, out_hw, **kw)

@@ -91,11 +91,11 @@ def crop_resize_cuda(
     """:func:`~busca_tpu_torch.ops.crop.crop_resize_normalize` on the card
     through K1.  ``frame``: CUDA ``[H, W, 3]`` uint8; ``boxes``: ``[N, 4]``
     ltrb.  Returns ``[N, OH, OW, 3]`` float32 on the frame's device."""
+    from busca_tpu_torch.ops.crop import check_card_frame
+
     if not frame.is_cuda:
         raise ValueError("crop_resize_cuda needs a CUDA frame")
-    if frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3:
-        raise ValueError(f"frame must be [H, W, 3] uint8, got "
-                         f"{tuple(frame.shape)} {frame.dtype}")
+    check_card_frame(frame)
     boxes = torch.as_tensor(boxes, dtype=torch.float32, device=frame.device)
     if boxes.dim() != 2 or boxes.shape[1] != 4:
         raise ValueError(f"boxes must be [N, 4], got {tuple(boxes.shape)}")

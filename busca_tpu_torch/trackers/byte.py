@@ -116,7 +116,9 @@ class ByteTracker:
           bboxes_tlbr: ``[N, 4]`` detections in detector coordinates.
           scores: ``[N]`` confidences.
           scale: detector-coords = original-coords * scale.
-          frame: original uint8 BGR frame (needed for BUSCA crops / CMC).
+          frame: uint8 BGR frame ``[H, W, 3]`` (needed for BUSCA crops /
+            CMC): a host array, or a tensor on a device, such as a
+            detector's canvas (the crops then read it where it lies).
         Returns:
           the activated output tracks.
         """
@@ -187,7 +189,8 @@ class ByteTracker:
         # crops of the third round reuse it.
         frame_t = None
         if self.use_busca and cfg.busca_thresh > 0 and frame is not None:
-            frame_t = torch.as_tensor(np.asarray(frame)).to(self.engine.device)
+            # a detector's device canvas stays where it is
+            frame_t = torch.as_tensor(frame).to(self.engine.device)
             imgs_considered = self._crops(frame_t, dets_considered * scale)
             fidx = np.where(first_mask[considered_mask])[0]
             sidx = np.where(second_mask[considered_mask])[0]
@@ -282,7 +285,7 @@ class ByteTracker:
                 third_pool = unassigned
                 if cfg.use_camera_motion_compensation and self.frame_id > 1:
                     cmc.compensate_tracks(
-                        third_pool, self.last_image, frame,
+                        third_pool, self.last_image, _host(frame),
                         scale=cfg.cmc_scale,
                     )
                 kalman_cands = self._kalman_candidates(third_pool, frame_t)
@@ -367,7 +370,7 @@ class ByteTracker:
             and self.use_busca
             and cfg.use_camera_motion_compensation
         )
-        self.last_image = np.asarray(frame).copy() if keep_frame else None
+        self.last_image = _host(frame).copy() if keep_frame else None
         return [t for t in self.tracked if t.is_activated]
 
     # ------------------------------------------------------------ internals --
@@ -409,6 +412,14 @@ class ByteTracker:
         """Detection-coverage gate (byte_tracker.py:459-465, 574-623)."""
         cov = detection_coverage(frame, active_tracks)
         return cov["area_covered"] > cov["area_covered_per_obj"] * p[0] + p[1]
+
+
+def _host(frame) -> np.ndarray:
+    """A frame as a host array: a tensor (a detector's canvas on its
+    device) is copied back; CMC's ECC runs on the host."""
+    if torch.is_tensor(frame):
+        return frame.cpu().numpy()
+    return np.asarray(frame)
 
 
 def detection_coverage(frame: np.ndarray, tracks: Sequence[Track]) -> dict:

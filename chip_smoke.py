@@ -9,8 +9,9 @@ Phases (each failure exits non-zero before the result line):
    started together), with their ptxas reports;
 2. K1 against its plain torch version on the card, exactly: a seeded
    1080x1920 frame, 64 boxes (inside, partly outside, wholly outside,
-   degenerate), every flag combination of the crop op; the detector's
-   letterbox shape (one full-frame box, 1080x1920 -> 612x1088); and the pad
+   degenerate), every flag combination of the crop op; the detectors'
+   letterbox shapes (one full-frame box, 1080x1920 -> 612x1088 for
+   TransCenter, -> 800x1422 for YOLOX); and the pad
    path at 2160x3840 (values 200-255, boxes across each edge, one covering
    the frame, whose region total passes 2**32); max |diff|, exact share,
    times of the op, the kernel alone and the plain version, and the bound;
@@ -34,7 +35,18 @@ Phases (each failure exits non-zero before the result line):
    the dropout sequence at 1080x1920, with K1's and K2's launch counts read
    around it (K2: exactly 12 per frame), the detector step's time, peak
    memory and profile by kernel kind;
-7. the ``kernels`` JSON line, then the result line
+7. the YOLOX-X loop, the canonical ByteTrack + BUSCA path: the full-width
+   detector (depth 1.33, width 1.25, one class, 800x1440) with seeded random
+   weights calibrated on the sequence (BN statistics, head biases), against
+   the same model on the CPU at 128x224 on the raw head outputs and the
+   decoded rows; then ``track_frames_with_detector`` with ByteTracker +
+   BUSCA over the dropout sequence at 1080x1920, pipelined
+   (``put_frame``/``detect_async``) and serial, which must agree frame by
+   frame, with K1's launches read around the pipelined run; the step's time,
+   peak memory, profile by kernel kind and float32 operation count; a check
+   that ``detect_async`` enqueues without a host sync and returns before its
+   step ends;
+8. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,6 +66,7 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 K1_TOL = 0.0  # K1 equals its plain version bit for bit
 PROB_TOL = 1e-3  # card vs CPU probabilities, float32 with TF32 off
 LETTERBOX_HW = (612, 1088)  # 1080x1920 into the 640x1088 test size
+YX_LETTERBOX_HW = (800, 1422)  # 1080x1920 into YOLOX's 800x1440
 PAD_FRAME_HW = (2160, 3840)  # K1's pad path: a 4K frame of values 200-255
 # the flags both main paths crop with (BUSCA crops, the letterbox)
 K1_MAIN_KW = dict(normalize=False, bgr_input=True, rgb_output=False,
@@ -78,6 +91,23 @@ TC_HM_GAIN, TC_HM_BIAS, TC_WH_BIAS = 3.0, -1.0, (12.0, 30.0)
 # every detection above 0.6 is first-round (> 0.5) and starts a track
 # (>= 0.6 = track_thresh + 0.1)
 TC_OUT_THRESH, TC_TRACK_THRESH = 0.6, 0.5
+YX_TEST_SIZE = (800, 1440)
+YX_CPU_SIZE = (128, 224)
+YX_TOL = 1e-3  # card vs CPU, relative and absolute, float32 with TF32 off
+YX_FRAMES = 20
+# The random YOLOX-X is calibrated on the sequence's frames
+# (YoloxDetector.calibrate_random_weights): BN statistics measured on them,
+# cls bias 4 (class score ~0.98), boxes of 200x80 canvas pixels (270x108 in
+# the 1080p frame).  Then, for the first of YX_OBJ_GAINS (a scale of the
+# obj weights, which spreads the objectness) that leaves at most
+# YX_MAX_DETS detections above YX_CONF on the first frame, the obj bias is
+# the least (found by bisection) that leaves YX_FIRST_DETS of them at or
+# above the score that starts a track (track_thresh + 0.1), so that the
+# frames give some 10-30 detections, a few of them flickering across the
+# thresholds.
+YX_CLS_BIAS, YX_BOX_HW = 4.0, (200.0, 80.0)
+YX_OBJ_GAINS, YX_FIRST_DETS, YX_MAX_DETS = (1, 2, 4, 8, 16, 32), 15, 20
+YX_CONF, YX_TRACK_THRESH = 0.3, 0.5
 
 
 class PhaseError(RuntimeError):
@@ -331,16 +361,17 @@ def phase_k1(device):
     }
 
 
-def phase_k1_letterbox(device):
-    """K1 at the TransCenter detector's letterbox shape: one full-frame box,
-    1080x1920 -> 612x1088, quantized, not normalized."""
+def phase_k1_letterbox(device, out_hw, label):
+    """K1 at a detector's letterbox shape: one full-frame box, 1080x1920 ->
+    ``out_hw`` (612x1088 for TransCenter, 800x1422 for YOLOX), quantized,
+    not normalized."""
     frame, boxes_np, boxes, scratch, out = k1_case(
         device, 3, lambda rng, h, w: [[0.0, 0.0, float(w), float(h)]],
-        LETTERBOX_HW)
-    result = hold_k1(f"K1 at the letterbox shape {FRAME_HW} -> "
-                     f"{LETTERBOX_HW}", frame, boxes, scratch, out,
+        out_hw)
+    result = hold_k1(f"K1 at the {label} letterbox shape {FRAME_HW} -> "
+                     f"{out_hw}", frame, boxes, scratch, out,
                      K1_MAIN_KW, timed=True)
-    report_k1("letterbox", result, FRAME_HW, boxes_np, out)
+    report_k1(f"{label} letterbox", result, FRAME_HW, boxes_np, out)
     return result
 
 
@@ -658,8 +689,10 @@ def calibrate_heads(model):
 KERNEL_KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("K2 local_tap_sum", ("local_tap_sum",)),
     ("K1 crop_resize", ("crop_resize",)),
+    # before matmul: cuDNN's implicit-GEMM convolutions carry "gemm"/"xmma"
+    ("convolution", ("conv", "cudnn", "implicit", "winograd", "fprop")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "splitk")),
-    ("convolution", ("conv", "cudnn", "implicit", "winograd")),
+    ("max pool", ("max_pool", "pool2d")),
     ("upsample", ("upsample",)),
     ("softmax", ("softmax",)),
     ("layer norm", ("layer_norm", "layernorm")),
@@ -667,7 +700,7 @@ KERNEL_KINDS = (  # (kind, substrings of a kernel's name), first match wins
 )
 
 
-def profile_step(step, step_ms, reps=3):
+def profile_step(step, step_ms, reps=3, label="detector step"):
     """Device time of ``reps`` calls of ``step`` by kernel kind
     (torch.profiler), and its idle share of ``step_ms``, the step's time
     measured without the profiler (whose own overhead stretches the
@@ -693,17 +726,17 @@ def profile_step(step, step_ms, reps=3):
             e.time_range.elapsed_us() / 1e3 / reps
     busy = sum(by_kind.values())
     if not busy:
-        print("detector step profile: the profiler recorded no device "
-              "time (not measured)")
+        print(f"{label} profile: the profiler recorded no device time "
+              "(not measured)")
         return
     parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1]))
-    print(f"detector step profile (mean of {reps}): device busy "
+    print(f"{label} profile (mean of {reps}): device busy "
           f"{busy:.2f} ms of the {step_ms:.2f} ms step, idle "
           f"{100 * (1 - busy / step_ms):.1f}%; {parts}")
     up = by_kind.get("upsample", 0.0)
-    print(f"detector step profile: upsample {up:.2f} ms "
+    print(f"{label} profile: upsample {up:.2f} ms "
           f"({100 * up / busy:.1f}% of the device time)")
 
 
@@ -847,6 +880,239 @@ def phase_transcenter(device, engine, k2_ms):
     return k1_launches, k2_launches
 
 
+def calibrate_yolox(det, frames):
+    """The smoke's calibration of the random YOLOX (see YX_CLS_BIAS):
+    returns the obj weights' gain and the obj bias it set."""
+    import torch
+
+    det.calibrate_random_weights(frames, 0.0, YX_CLS_BIAS, YX_BOX_HW)
+    preds = det.model.head.obj_preds
+    weights = [p.weight.detach().clone() for p in preds]
+
+    def counts(gain, bias):
+        with torch.no_grad():
+            for p, w in zip(preds, weights):
+                p.weight.copy_(w * gain)
+                p.bias.fill_(bias)
+        scores = det.detect(frames[0]).scores
+        return (int((scores >= YX_TRACK_THRESH + 0.1).sum()),
+                int((scores >= YX_CONF).sum()))
+
+    for gain in YX_OBJ_GAINS:
+        lo, hi = -100.0, 100.0  # the counts rise with the bias
+        for _ in range(24):
+            mid = (lo + hi) / 2
+            if counts(gain, mid)[0] >= YX_FIRST_DETS:
+                hi = mid
+            else:
+                lo = mid
+        if counts(gain, hi)[1] <= YX_MAX_DETS:
+            break
+    return gain, hi
+
+
+def conv_flops(model, x):
+    """float32 operations of one forward: 2 * Cin/groups * k^2 * Cout *
+    Hout * Wout per convolution, read from the output shapes with forward
+    hooks."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, _inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        total[0] += (2 * mod.in_channels // mod.groups * k
+                     * out.shape[1] * out.shape[2] * out.shape[3]
+                     * out.shape[0])
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+class SerialOnly:
+    """Detector proxy hiding ``detect_async``: the loop runs serially."""
+
+    def __init__(self, det):
+        self.put_frame = det.put_frame
+        self.detect = det.detect
+
+
+def phase_yolox(device, engine):
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import (
+        YoloxDetector,
+        normalize_canvas,
+        track_frames_with_detector,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.models.yolox import YoloxConfig, decode_outputs
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    cfg = YoloxConfig.size("x", num_classes=1)
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    frames = [seq.frame(t) for t in range(YX_FRAMES)]
+    t0 = time.perf_counter()
+    det = YoloxDetector(cfg, None, test_size=YX_TEST_SIZE,
+                        conf_thresh=YX_CONF, device=device, seed=0)
+    n_params = sum(p.numel() for p in det.model.parameters())
+    torch.cuda.synchronize()
+    print(f"YOLOX-X build (depth {cfg.depth}, width {cfg.width}, "
+          f"{cfg.num_classes} class, {YX_TEST_SIZE[0]}x{YX_TEST_SIZE[1]}, "
+          f"{n_params} parameters): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gain, bias = calibrate_yolox(det, frames)
+    torch.cuda.synchronize()
+    print(f"YOLOX-X calibration on {len(frames)} frames: "
+          f"{time.perf_counter() - t0:.2f} s; obj weights x{gain}, obj bias "
+          f"{bias:.4f}, cls bias "
+          f"{YX_CLS_BIAS}, boxes {YX_BOX_HW} canvas pixels")
+
+    # the same model on the CPU, at a reduced test size, on a real canvas
+    cpu_det = YoloxDetector(
+        cfg, {k: v.cpu() for k, v in det.model.state_dict().items()},
+        test_size=YX_CPU_SIZE, device="cpu")
+    canvas_cpu, _ = cpu_det.prep(torch.as_tensor(frames[0]))
+    x = normalize_canvas(canvas_cpu, cpu_det._mean, cpu_det._std).permute(
+        2, 0, 1)[None]
+    with torch.no_grad():
+        want_raw = cpu_det.model(x, decode=False)
+        got_raw = det.model(x.to(device), decode=False)
+        want_rows = decode_outputs(want_raw, cfg.strides)
+        got_rows = decode_outputs(got_raw, cfg.strides)
+    torch.cuda.synchronize()
+    pairs = [(f"level {lvl} {name}", g, w)
+             for lvl, (gs, ws) in enumerate(zip(got_raw, want_raw))
+             for name, g, w in zip(("reg", "obj", "cls"), gs, ws)]
+    pairs.append(("decoded rows", got_rows, want_rows))
+    for name, g, w in pairs:
+        check(g.shape == w.shape, f"YOLOX {name} shape")
+        check(bool(torch.isfinite(g).all()), f"YOLOX {name} non-finite")
+        err = float(((g.cpu() - w).abs() / (1.0 + w.abs())).max())
+        print(f"YOLOX-X card vs CPU at {YX_CPU_SIZE[0]}x{YX_CPU_SIZE[1]}, "
+              f"{name} {tuple(g.shape)}: max |diff| / (1 + |want|) "
+              f"{err:.3g} (tol {YX_TOL})")
+        check(err <= YX_TOL, f"card and CPU disagree on YOLOX {name}: {err}")
+
+    # the first frame's score spread, for the record
+    det.conf_thresh = 0.0
+    probe = det.detect(frames[0])
+    det.conf_thresh = YX_CONF
+    top = np.sort(probe.scores)[::-1]
+    print(f"YOLOX first frame: {len(top)} detections after NMS at conf 0; "
+          f"every 5th of the top 100 scores "
+          f"{np.round(top[:100:5], 3).tolist()}; above "
+          + ", ".join(f"{th}: {int((top > th).sum())}"
+                      for th in (0.1, 0.3, 0.5, 0.6, 0.7, 0.8, 0.9)))
+
+    # the enqueued step: no host sync, and back before the device is done
+    det.detect(frames[1])  # warm: K1 built, letterbox box cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = det.detect_async(det.put_frame(frames[1]))
+        returned_early = (handle.done is not None
+                          and not handle.done.query())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    det.wait(handle)
+    print(f"YOLOX detect_async under set_sync_debug_mode('error'): no host "
+          f"sync; returned before its step ended: {returned_early}")
+    check(returned_early, "detect_async waited for its step")
+
+    # CMC off: the card host has no cv2
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    third_rounds = [0]
+    assoc = engine.associate
+
+    def counted(*a, **k):
+        third_rounds[0] += 1
+        return assoc(*a, **k)
+
+    runs = {}
+    engine.associate = counted
+    try:
+        for mode, d in (("pipelined", det), ("serial", SerialOnly(det))):
+            third_rounds[0] = 0
+            det.nms_fallbacks = 0
+            log = []
+            Track.reset_id_counter()
+            tracker = make_tracker("byte", kwargs, engine, CROP_HW)
+            crop_resize_cuda.launches = 0
+            res = track_frames_with_detector(
+                d, tracker, frames, name="synthetic-1080p", det_log=log)
+            runs[mode] = (res, log, crop_resize_cuda.launches,
+                          third_rounds[0], det.nms_fallbacks)
+    finally:
+        engine.associate = assoc
+    for mode, (res, log, k1, rounds, fallbacks) in runs.items():
+        n_dets = [len(s) for _, _, s in log]
+        n_tracks = [len(r[2]) for r in res.results]
+        det_ms = res.stage_times["detector_s"] * 1e3 / res.num_frames
+        trk_ms = res.stage_times["tracker_s"] * 1e3 / res.num_frames
+        print(f"YOLOX loop {mode} ({FRAME_HW[0]}x{FRAME_HW[1]}, "
+              f"{res.num_frames} frames, conf {YX_CONF}, track_thresh "
+              f"{YX_TRACK_THRESH}): detections per frame {n_dets}; "
+              f"output tracks per frame {n_tracks}")
+        print(f"YOLOX loop {mode}: detector {det_ms:.2f} ms/frame, tracker "
+              f"{trk_ms:.2f} ms/frame, total {1e3 / res.fps:.2f} ms/frame; "
+              f"{rounds} third rounds; K1 launches {k1}; NMS finished in "
+              f"wait on {fallbacks} frames")
+        for _, boxes, scores in log:
+            check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+                  "non-finite detections")
+        check(rounds >= 1, f"no third round ran in the {mode} YOLOX loop")
+        check(sum(n_tracks) > 0, f"the {mode} YOLOX loop output no track")
+        check(k1 >= res.num_frames,
+              f"{mode}: K1 launched {k1} times, under one per frame")
+    piped, serial = runs["pipelined"][0], runs["serial"][0]
+    for (fa, ta, ia, _), (fb, tb, ib, _) in zip(piped.results,
+                                                serial.results):
+        check(fa == fb and ia == ib, f"frame {fa}: pipelined and serial "
+              "ids differ")
+        check(np.array_equal(np.reshape(ta, (-1, 4)),
+                             np.reshape(tb, (-1, 4))),
+              f"frame {fa}: pipelined and serial boxes differ")
+    print("YOLOX loop: pipelined and serial runs agree frame by frame")
+
+    canvas, _ = det.prep(torch.as_tensor(frames[0]).to(device))
+    step_ms = cuda_time_ms(lambda: det.step(canvas), reps=10, warmup=2)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.step(canvas)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    xin = normalize_canvas(canvas, det._mean, det._std).permute(2, 0, 1)[None]
+    flops = conv_flops(det.model, xin)
+    rate = flops / (step_ms * 1e-3)
+    print(f"YOLOX-X step (normalize, forward, decode, postprocess) at "
+          f"{YX_TEST_SIZE}: {step_ms:.2f} ms; {flops / 1e12:.4f} TFLOP of "
+          f"float32 convolution, {rate / 1e12:.2f} TFLOP/s, "
+          f"{100 * rate / FP32_FLOPS_PER_S:.1f}% of the 67 TFLOP/s float32 "
+          f"peak (bound {flops / FP32_FLOPS_PER_S * 1e3:.2f} ms)")
+    print(f"YOLOX-X step peak memory: {peak / 1e6:.1f} MB allocated, "
+          f"{(peak - held) / 1e6:.1f} MB above the {held / 1e6:.1f} MB held "
+          "before the step")
+    profile_step(lambda: det.step(canvas), step_ms, label="YOLOX-X step")
+    return runs["pipelined"][2]
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -870,21 +1136,27 @@ def main() -> int:
     try:
         phase_card()
         k1 = phase_k1(device)
-        k1["letterbox"] = phase_k1_letterbox(device)
+        k1["letterbox"] = phase_k1_letterbox(device, LETTERBOX_HW,
+                                             "TransCenter")
+        k1["letterbox_yolox"] = phase_k1_letterbox(device, YX_LETTERBOX_HW,
+                                                   "YOLOX")
         k1["pad_path"] = phase_k1_pad_path(device)
         k2 = phase_k2(device)
         engine = phase_association(device)
         k1_byte = phase_main_path(device, engine)
         k1_tc, k2["launches"] = phase_transcenter(device, engine,
                                                   k2["kernel_ms"])
+        k1_yolox = phase_yolox(device, engine)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: this slice's main path (the TransCenter loop); K1's count on
-    # each path is listed beside it
-    k1["launches"] = k1_tc
+    # launches: this slice's main path (the pipelined YOLOX loop); K1's
+    # count on each path is listed beside it; K2's is the TransCenter
+    # loop's, the only path that runs it
+    k1["launches"] = k1_yolox
     k1["launches_by_path"] = {"byte_synthetic": k1_byte,
-                              "transcenter_loop": k1_tc}
+                              "transcenter_loop": k1_tc,
+                              "yolox_loop": k1_yolox}
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

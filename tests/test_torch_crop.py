@@ -235,3 +235,19 @@ def test_jax_float32_pad_mean_drift(hw, max_drift):
     print(f"{h}x{w}: max pad-mean drift {drift.max():.3f} levels, "
           f"trunc flips {flips}/{n}")
     assert 0 < drift.max() < max_drift
+
+
+def test_card_frame_contract_is_uint8():
+    """The op takes uint8 frames on the card (what K1 reads) and uint8 or
+    float on the CPU; the dispatcher's check raises before any launch."""
+    frame = np.random.RandomState(9).randint(0, 256, (24, 32, 3))
+    boxes = np.array([[2.0, 3.0, 20.0, 18.0]], np.float32)
+    tcrop.check_card_frame(torch.from_numpy(frame.astype(np.uint8)))
+    for bad in (torch.from_numpy(frame.astype(np.float32)),
+                torch.zeros((24, 32, 4), dtype=torch.uint8),
+                torch.zeros((24, 32), dtype=torch.uint8)):
+        with pytest.raises(ValueError, match="uint8"):
+            tcrop.check_card_frame(bad)
+    as_float = _port(frame.astype(np.float32), boxes)
+    as_uint8 = _port(frame.astype(np.uint8), boxes)
+    np.testing.assert_array_equal(as_float, as_uint8)

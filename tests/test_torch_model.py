@@ -296,6 +296,68 @@ def test_busca_bridge_round_trip(busca_pair):
         np.testing.assert_array_equal(leaf, flat_b[path])
 
 
+def _busca_yaml(path):
+    import yaml
+
+    transformer = dict(SMALL, reid_layers=list(SMALL["reid_layers"]))
+    with open(path, "w") as f:
+        yaml.safe_dump({"transformer": transformer,
+                        "tracker": {"seq_len": 5, "num_candidates": 3}}, f)
+    return str(path)
+
+
+@pytest.mark.parametrize("case", ["fc_11_classes", "no_bad_token"])
+def test_reference_pth_loads_like_jax(busca_pair, tmp_path, case):
+    """A reference ``.pth`` that busca_tpu loads loads in the port too, and
+    both packages' ``build_engine`` give the same logits.  An 11-class ReID
+    ``fc`` (the config says 7) is dropped by both; a checkpoint without
+    ``bad_token`` leaves each package's token at its own initial value, so
+    the port's must equal its seeded init, and the logits are diffed with
+    JAX's initial token copied in."""
+    from busca_tpu.eval import run as jrun
+    from busca_tpu_torch.eval import run as trun
+
+    _, variables, _ = busca_pair
+    sd = state_dict_from_flax(variables)
+    if case == "fc_11_classes":
+        feat = sd["reid_encoder.model.fc.weight"].shape[1]
+        g = torch.Generator().manual_seed(9)
+        sd["reid_encoder.model.fc.weight"] = torch.randn((11, feat),
+                                                         generator=g)
+        sd["reid_encoder.model.fc.bias"] = torch.randn((11,), generator=g)
+    else:
+        del sd["bad_token"]
+    pth = str(tmp_path / "model_busca.pth")
+    torch.save({"model_state_dict": sd}, pth)
+    cfg = _busca_yaml(tmp_path / "busca.yml")
+    jeng, _ = jrun.build_engine(cfg, pth, CROP, dtype="float32")
+    teng, _ = trun.build_engine(cfg, pth, device="cpu", crop_hw=CROP,
+                                seed=0)
+    tmod = teng.model
+    if case == "no_bad_token":
+        init = BuscaModel(BuscaConfig(**SMALL)).init_weights(
+            torch.Generator().manual_seed(0))
+        assert torch.equal(tmod.bad_token, init.bad_token)
+        with torch.no_grad():
+            tmod.bad_token.copy_(torch.from_numpy(
+                np.array(jeng.variables["params"]["bad_token"])))
+    np.testing.assert_array_equal(
+        tmod.non_token.detach().numpy(),
+        np.asarray(jeng.variables["params"]["non_token"]))
+    rng = np.random.RandomState(8)
+    mem, uniq, gather, _, mb, cb, mask = _busca_inputs(rng)
+    can = uniq[gather]
+    want = jeng.model.apply(jeng.variables, jnp.asarray(mem),
+                            jnp.asarray(can), jnp.asarray(mb),
+                            jnp.asarray(cb), jnp.asarray(mask))
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(mem), torch.from_numpy(can),
+                   torch.from_numpy(mb), torch.from_numpy(cb),
+                   torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-4)
+
+
 def test_frozen_bn_variables_round_trip():
     cfg = JCfg(**SMALL, reid_use_batch_stats=False)
     h, w = CROP
