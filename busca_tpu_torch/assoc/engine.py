@@ -20,6 +20,10 @@ Reference semantics kept:
   ``D + t`` in the output matrix (network.py:363-380);
 - the one-hot post-processing (network.py:415-422).
 
+The model computes in ``config.dtype`` (busca_tpu's ``AssociationEngine``
+builds its model from the config); the crops are prepared in float32 and
+the ReID casts them at its entry (busca_tpu/models/reid.py:225).
+
 Batch mode only: ``reid_stats='frozen'|'auto'``, ``associate_many`` and the
 debug montage are not ported yet (ROADMAP.md Queue 1, item 7).
 """
@@ -115,6 +119,9 @@ class AssociationEngine:
             raise NotImplementedError(_NOT_PORTED.format("debug montage"))
         if bank is not None and tuple(bank.crop_hw) != tuple(crop_hw):
             raise ValueError("bank crop_hw mismatch")
+        if model.config.dtype != config.dtype:
+            raise ValueError(f"the model computes in {model.config.dtype}, "
+                             f"the config says {config.dtype}")
         self.reid_stats = reid_stats
         self.config = config
         self.model = model.eval()

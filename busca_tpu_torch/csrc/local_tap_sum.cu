@@ -10,7 +10,9 @@
 // F.interpolate and jax.image.resize compute it), and a level already of the
 // query size is read as it is.  weights are [H4, W4, heads, L*9]
 // (level-major, taps dy-outer / dx-inner over (-1, 0, 1)), out [H4, W4, C];
-// all float32, contiguous.
+// contiguous, and all float32 or all bf16 (busca_tpu's kernel takes either,
+// lma_pallas.py:131-134): the kernel is a template over the element type,
+// instantiated for float and __nv_bfloat16.
 //
 // Replaces the Pallas TPU kernel busca_tpu/ops/lma_pallas.py::_kernel
 // (reached through lma_pallas.local_tap_sum) together with the bilinear
@@ -68,6 +70,13 @@
 // footprint to 24x24 and 32x32 pixels.  The decoder's call stages every
 // level.
 //
+// bf16: a group is 8 channels in the same 16 bytes, so a thread's slice
+// takes 2 groups (1 at head_dim 8) for the same 16 channels, and the
+// footprints half the shared memory.  Values are widened to float32 on
+// load; the weights are widened by the threads into the same float32
+// shared rows (no cp.async).  Simple first: at 8 float32 values a group, a
+// thread's 9 taps take twice the registers of the float32 instantiation.
+//
 // Rounding: build with -fmad=false, so that every product is rounded before
 // its add, as in the plain torch version (ops/lma.py::
 // local_tap_sum_levels_plain: separable lerps, x then y, then
@@ -75,14 +84,21 @@
 //   v = l0y * (l0x * v00 + l1x * v01) + l1y * (l0x * v10 + l1x * v11),
 //   acc = acc + v * w,
 // in the reference's term order (levels, then dy, then dx), so the two agree
-// bit for bit.  A tap outside the grid adds v * 0, where v is the value of
-// one of the pixel's taps inside the grid; the plain version adds 0 * w.
+// bit for bit.  In bf16 each lerp is rounded to bf16 (x-lerp, then y-lerp,
+// __float2bfloat16_rn), with jax.image.resize's weights in bf16 (l0 and l1
+// rounded, (1, 0) where the source index clamps at the map's far edge), the
+// products and the sum stay float32, and the output is rounded to bf16.
+// A tap outside the grid adds v * 0, where v is the value of one of the
+// pixel's taps inside the grid; the plain version adds 0 * w.
 // For finite values both add zero (at most the sign of a zero sum
 // differs).  An inf or NaN in a level reaches the out-of-grid tap only if
 // an in-grid tap of the same pixel adds it too, so the kernel's output is
 // non-finite exactly where the plain version's is.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -91,26 +107,97 @@ constexpr int kTileY = 16, kTileX = 16;
 constexpr int kThreads = kTileY * kTileX;  // one pixel of the tile each
 constexpr int kMaxSmemBytes = 96 * 1024;   // two blocks per SM at least
 
+// A group: one 16-byte load of a level map, N consecutive channels (4
+// floats or 8 bf16), held as float32 values in registers.  round() is the
+// element type's rounding of a float32 result.
+template <typename T>
+struct Group;
+
+template <>
+struct Group<float> {
+  static constexpr int N = 4;
+  float v[N];
+  __device__ __forceinline__ static float round(float x) { return x; }
+  __device__ __forceinline__ static Group from(float4 a) {
+    Group g;
+    g.v[0] = a.x;
+    g.v[1] = a.y;
+    g.v[2] = a.z;
+    g.v[3] = a.w;
+    return g;
+  }
+  __device__ __forceinline__ static Group load(const float4* p) {
+    return from(*p);
+  }
+  __device__ __forceinline__ static Group ldg(const float* p) {
+    return from(__ldg(reinterpret_cast<const float4*>(p)));
+  }
+  __device__ __forceinline__ void store(void* p) const {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Group<__nv_bfloat16> {
+  static constexpr int N = 8;
+  float v[N];
+  __device__ __forceinline__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  // a bf16 is the high half of its float32: widening is exact
+  __device__ __forceinline__ static Group from(uint4 a) {
+    const unsigned words[4] = {a.x, a.y, a.z, a.w};
+    Group g;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      g.v[2 * i] = __uint_as_float(words[i] << 16);
+      g.v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    }
+    return g;
+  }
+  __device__ __forceinline__ static Group load(const float4* p) {
+    return from(*reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ static Group ldg(const __nv_bfloat16* p) {
+    return from(__ldg(reinterpret_cast<const uint4*>(p)));
+  }
+  // rounds to nearest even: the plain version's .to(torch.bfloat16)
+  __device__ __forceinline__ void store(void* p) const {
+    unsigned words[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      words[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))
+          | ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
+             << 16);
+    }
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(words[0], words[1], words[2], words[3]);
+  }
+};
+
+template <typename T>
 struct Levels {
-  const float* v[kMaxLevels];
+  const T* v[kMaxLevels];
   int h[kMaxLevels];
   int w[kMaxLevels];
   int dil[kMaxLevels];
   // Per level, set by the launcher: the most pixels a tile's footprint can
   // take (0 = not staged: read tap by tap from global memory) and its
-  // offset in the shared buffer, in float4 units.
+  // offset in the shared buffer, in 16-byte units.
   int fp[kMaxLevels];
   int off[kMaxLevels];
 };
 
 // One axis of a bilinear tap, by PyTorch's align_corners=False rule
 // (ATen/native/UpSample.h: area_pixel_compute_source_index and
-// guard_index_and_lambda).
+// guard_index_and_lambda).  For bf16 the weights are jax.image.resize's in
+// bf16: (1, 0) where i1 is clamped to i0, and both rounded to bf16.
 struct Lerp {
   int i0, i1;
   float l0, l1;
 };
 
+template <typename T>
 __device__ __forceinline__ Lerp lerp_index(int dst, int n, float scale) {
   float src = scale * ((float)dst + 0.5f) - 0.5f;
   src = src < 0.0f ? 0.0f : src;
@@ -118,25 +205,33 @@ __device__ __forceinline__ Lerp lerp_index(int dst, int n, float scale) {
   r.i0 = (int)src;
   r.i1 = r.i0 + (r.i0 < n - 1 ? 1 : 0);
   r.l1 = src - (float)r.i0;
-  r.l0 = 1.0f - r.l1;
+  if constexpr (std::is_same<T, float>::value) {
+    r.l0 = 1.0f - r.l1;
+  } else {
+    if (r.i1 == r.i0) r.l1 = 0.0f;
+    r.l0 = Group<T>::round(1.0f - r.l1);
+    r.l1 = Group<T>::round(r.l1);
+  }
   return r;
 }
 
-__device__ __forceinline__ float4 lerp4(float4 a, float la, float4 b,
-                                        float lb) {
-  return make_float4(la * a.x + lb * b.x, la * a.y + lb * b.y,
-                     la * a.z + lb * b.z, la * a.w + lb * b.w);
-}
-
-__device__ __forceinline__ float4 ldg4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
+// la * a + lb * b in float32, rounded to the element type
+template <typename T>
+__device__ __forceinline__ Group<T> lerp(const Group<T>& a, float la,
+                                         const Group<T>& b, float lb) {
+  Group<T> r;
+#pragma unroll
+  for (int i = 0; i < Group<T>::N; ++i) {
+    r.v[i] = Group<T>::round(la * a.v[i] + lb * b.v[i]);
+  }
+  return r;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(float4* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(float4* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
@@ -190,11 +285,11 @@ __device__ __forceinline__ Footprint footprint(int y0, int x0, int y_last,
     f.rows = yy_hi - yy_lo + 1;
     f.j_lo = xx_lo;
     f.jcols = f.cols;
-  } else {
-    f.r_lo = lerp_index(yy_lo, h, sy).i0;
-    f.rows = lerp_index(yy_hi, h, sy).i1 - f.r_lo + 1;
-    f.j_lo = lerp_index(xx_lo, w, sx).i0;
-    f.jcols = lerp_index(xx_hi, w, sx).i1 - f.j_lo + 1;
+  } else {  // the indices do not depend on the element type
+    f.r_lo = lerp_index<float>(yy_lo, h, sy).i0;
+    f.rows = lerp_index<float>(yy_hi, h, sy).i1 - f.r_lo + 1;
+    f.j_lo = lerp_index<float>(xx_lo, w, sx).i0;
+    f.jcols = lerp_index<float>(xx_hi, w, sx).i1 - f.j_lo + 1;
   }
   return f;
 }
@@ -202,18 +297,19 @@ __device__ __forceinline__ Footprint footprint(int y0, int x0, int y_last,
 // Block (slice, tile x, tile y): the slice is the fastest grid index, so the
 // blocks of one tile run together and share its reads in L2.  Shared
 // memory: the tile's weights of the slice's head, [256][L*9] floats; each
-// staged level's footprint, [SQ][rows][jcols] float4; one buffer of x-lerps,
-// [SQ][rows][cols] float4.
-template <int SQ>
+// staged level's footprint, [SQ][rows][jcols] groups; one buffer of
+// x-lerps, [SQ][rows][cols] groups (a group is 16 bytes of T).
+template <typename T, int SQ>
 __global__ void __launch_bounds__(kThreads, 2)
-    local_tap_sum_kernel(Levels lv, const float* __restrict__ weights,
-                         float* __restrict__ out, int levels, int h4, int w4,
+    local_tap_sum_kernel(Levels<T> lv, const T* __restrict__ weights,
+                         T* __restrict__ out, int levels, int h4, int w4,
                          int c, int heads, int xbuf_off, bool w16) {
+  using G = Group<T>;
   extern __shared__ float4 smem[];
   const int taps = levels * 9;
   float* wsm = reinterpret_cast<float*>(smem);
   float4* xbuf = smem + xbuf_off;
-  const int c0 = blockIdx.x * SQ * 4;  // the slice's first channel
+  const int c0 = blockIdx.x * SQ * G::N;  // the slice's first channel
   const int x0 = blockIdx.y * kTileX, y0 = blockIdx.z * kTileY;
   const int head = c0 / (c / heads);  // the slice lies in one head
   const int tid = threadIdx.x;
@@ -226,8 +322,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   // level 0): the tile's weights of the head, a pixel's taps in a row,
   // consecutive threads on consecutive words (in 16-byte pieces when a row
   // is a whole number of them); then each staged level's footprint, the
-  // threads of a pixel reading its slice together.
-  {
+  // threads of a pixel reading its slice together.  bf16 weights are read
+  // and widened to float32 by the threads.
+  if constexpr (std::is_same<T, float>::value) {
     const int piece = w16 ? 4 : 1, pieces = taps / piece;
     int p = tid / pieces, t = tid - p * pieces;
     const int step_p = kThreads / pieces, step_t = kThreads - step_p * pieces;
@@ -251,6 +348,15 @@ __global__ void __launch_bounds__(kThreads, 2)
         ++p;
       }
     }
+  } else {
+    for (int i = tid; i < taps * kThreads; i += kThreads) {
+      const int p = i / taps, t = i - p * taps;
+      const int py = y0 + p / kTileX, px = x0 + p % kTileX;
+      if (py < h4 && px < w4) {
+        wsm[i] = __bfloat162float(
+            weights[(((size_t)py * w4 + px) * heads + head) * taps + t]);
+      }
+    }
   }
   for (int l = 0; l < levels; ++l) {
     const int h = lv.h[l], w = lv.w[l];
@@ -259,8 +365,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                                   h4, w4, direct, (float)h / (float)h4,
                                   (float)w / (float)w4);
     if (f.rows * f.jcols <= lv.fp[l]) {  // block-uniform
-      // thread: one float4 group q of every (kThreads / SQ)-th pixel
-      const float* vl = lv.v[l] + c0 + (tid % SQ) * 4;
+      // thread: one group q of every (kThreads / SQ)-th pixel
+      const T* vl = lv.v[l] + c0 + (tid % SQ) * G::N;
       float4* raw = smem + lv.off[l] + (tid % SQ) * f.rows * f.jcols;
       const int step = kThreads / SQ;
       const int step_r = step / f.jcols, step_j = step - step_r * f.jcols;
@@ -277,13 +383,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
   }
 
-  float4 acc[SQ];
+  G acc[SQ];
 #pragma unroll
-  for (int q = 0; q < SQ; ++q) acc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q = 0; q < SQ; ++q) {
+#pragma unroll
+    for (int i = 0; i < G::N; ++i) acc[q].v[i] = 0.0f;
+  }
 
   for (int l = 0; l < levels; ++l) {
     const int d = lv.dil[l], h = lv.h[l], w = lv.w[l];
-    const float* vl = lv.v[l] + c0;
+    const T* vl = lv.v[l] + c0;
     const bool direct = h == h4 && w == w4;
     const float sy = (float)h / (float)h4;
     const float sx = (float)w / (float)w4;
@@ -306,9 +415,10 @@ __global__ void __launch_bounds__(kThreads, 2)
           col -= f.cols;
           if (++qr >= lines) break;
         }
-        const Lerp rx = lerp_index(f.xx_lo + col, w, sx);
+        const Lerp rx = lerp_index<T>(f.xx_lo + col, w, sx);
         const float4* row = raw + qr * f.jcols - f.j_lo;
-        xbuf[qr * f.cols + col] = lerp4(row[rx.i0], rx.l0, row[rx.i1], rx.l1);
+        lerp<T>(G::load(row + rx.i0), rx.l0, G::load(row + rx.i1), rx.l1)
+            .store(xbuf + qr * f.cols + col);
       }
       __syncthreads();
       buf = xbuf;
@@ -328,7 +438,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const bool y_in = yy >= 0 && yy < h4;
       const int yc = y_in ? yy : y;
       xc[k] = xx >= 0 && xx < w4 ? xx : x;
-      ry[k] = direct ? Lerp{yc, yc, 1.0f, 0.0f} : lerp_index(yc, h, sy);
+      ry[k] = direct ? Lerp{yc, yc, 1.0f, 0.0f} : lerp_index<T>(yc, h, sy);
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
         const int xt = x + (dx - 1) * d;
@@ -342,81 +452,84 @@ __global__ void __launch_bounds__(kThreads, 2)
                          ry[2].i0 == ry[0].i0 + 2 && ry[2].i1 == ry[2].i0 + 1;
 #pragma unroll
     for (int q = 0; q < SQ; ++q) {
-      float4 v[9];
+      G v[9];
       if (staged) {
         const float4* bq = buf + q * plane - f.xx_lo;
         if (direct) {
 #pragma unroll
           for (int t = 0; t < 9; ++t) {
-            v[t] = bq[(ry[t / 3].i0 - f.r_lo) * f.cols + xc[t % 3]];
+            v[t] = G::load(bq + (ry[t / 3].i0 - f.r_lo) * f.cols + xc[t % 3]);
           }
         } else if (regular) {
           const float4* b = bq + (ry[0].i0 - f.r_lo) * f.cols;
 #pragma unroll
           for (int dx = 0; dx < 3; ++dx) {
-            float4 rows[4];
+            G rows[4];
 #pragma unroll
-            for (int k = 0; k < 4; ++k) rows[k] = b[k * f.cols + xc[dx]];
+            for (int k = 0; k < 4; ++k) {
+              rows[k] = G::load(b + k * f.cols + xc[dx]);
+            }
 #pragma unroll
             for (int dy = 0; dy < 3; ++dy) {
-              v[dy * 3 + dx] = lerp4(rows[dy], ry[dy].l0, rows[dy + 1],
-                                     ry[dy].l1);
+              v[dy * 3 + dx] = lerp<T>(rows[dy], ry[dy].l0, rows[dy + 1],
+                                       ry[dy].l1);
             }
           }
         } else {
 #pragma unroll
           for (int t = 0; t < 9; ++t) {
             const Lerp& r = ry[t / 3];
-            v[t] = lerp4(bq[(r.i0 - f.r_lo) * f.cols + xc[t % 3]], r.l0,
-                         bq[(r.i1 - f.r_lo) * f.cols + xc[t % 3]], r.l1);
+            v[t] = lerp<T>(G::load(bq + (r.i0 - f.r_lo) * f.cols + xc[t % 3]),
+                           r.l0,
+                           G::load(bq + (r.i1 - f.r_lo) * f.cols + xc[t % 3]),
+                           r.l1);
           }
         }
       } else {
-        const float* vq = vl + q * 4;
+        const T* vq = vl + q * G::N;
 #pragma unroll
         for (int t = 0; t < 9; ++t) {
           const Lerp& r = ry[t / 3];
           if (direct) {
-            v[t] = ldg4(vq + ((size_t)r.i0 * w + xc[t % 3]) * c);
+            v[t] = G::ldg(vq + ((size_t)r.i0 * w + xc[t % 3]) * c);
           } else {
-            const Lerp rx = lerp_index(xc[t % 3], w, sx);
-            const float* g0 = vq + (size_t)r.i0 * w * c;
-            const float* g1 = vq + (size_t)r.i1 * w * c;
-            v[t] = lerp4(lerp4(ldg4(g0 + (size_t)rx.i0 * c), rx.l0,
-                               ldg4(g0 + (size_t)rx.i1 * c), rx.l1),
-                         r.l0,
-                         lerp4(ldg4(g1 + (size_t)rx.i0 * c), rx.l0,
-                               ldg4(g1 + (size_t)rx.i1 * c), rx.l1),
-                         r.l1);
+            const Lerp rx = lerp_index<T>(xc[t % 3], w, sx);
+            const T* g0 = vq + (size_t)r.i0 * w * c;
+            const T* g1 = vq + (size_t)r.i1 * w * c;
+            v[t] = lerp<T>(lerp<T>(G::ldg(g0 + (size_t)rx.i0 * c), rx.l0,
+                                   G::ldg(g0 + (size_t)rx.i1 * c), rx.l1),
+                           r.l0,
+                           lerp<T>(G::ldg(g1 + (size_t)rx.i0 * c), rx.l0,
+                                   G::ldg(g1 + (size_t)rx.i1 * c), rx.l1),
+                           r.l1);
           }
         }
       }
       // the reference's term order: dy, then dx
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
-        acc[q].x = acc[q].x + v[t].x * wt[t];
-        acc[q].y = acc[q].y + v[t].y * wt[t];
-        acc[q].z = acc[q].z + v[t].z * wt[t];
-        acc[q].w = acc[q].w + v[t].w * wt[t];
+#pragma unroll
+        for (int i = 0; i < G::N; ++i) {
+          acc[q].v[i] = acc[q].v[i] + v[t].v[i] * wt[t];
+        }
       }
     }
   }
   if (inside) {
-    float4* o = reinterpret_cast<float4*>(out + ((size_t)y * w4 + x) * c + c0);
+    T* o = out + ((size_t)y * w4 + x) * c + c0;
 #pragma unroll
-    for (int q = 0; q < SQ; ++q) o[q] = acc[q];
+    for (int q = 0; q < SQ; ++q) acc[q].store(o + q * G::N);
   }
 }
 
-template <int SQ>
-cudaError_t launch_sq(Levels lv, const float* weights, float* out,
-                      int levels, int h4, int w4, int c, int heads,
-                      cudaStream_t stream) {
+template <typename T, int SQ>
+cudaError_t launch_sq(Levels<T> lv, const T* weights, T* out, int levels,
+                      int h4, int w4, int c, int heads, cudaStream_t stream) {
   // Stage each level whose footprint bound fits.  A tile's taps reach
   // ny <= 16 + 2*dil rows and nx <= 16 + 2*dil columns; through the lerps
   // an upsampled level's footprint takes at most floor((ny - 1) * h / h4)
   // + 3 of its rows (the source index is monotone), and likewise columns.
-  const int wsm = (levels * 9 * kThreads + 3) / 4;  // float4 units
+  const int wsm = (levels * 9 * kThreads + 3) / 4;  // 16-byte units
   int used = wsm, xbuf = 0;
   for (int l = 0; l < levels; ++l) {
     const int d = lv.dil[l], h = lv.h[l], w = lv.w[l];
@@ -439,50 +552,79 @@ cudaError_t launch_sq(Levels lv, const float* weights, float* out,
   const int smem = (used + xbuf) * 16;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        local_tap_sum_kernel<SQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        local_tap_sum_kernel<T, SQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((c / 4) / SQ, (w4 + kTileX - 1) / kTileX,
+  const dim3 grid((c / Group<T>::N) / SQ, (w4 + kTileX - 1) / kTileX,
                   (h4 + kTileY - 1) / kTileY);
-  // a pixel's weights in 16-byte pieces when its row of taps allows
-  const bool w16 = levels % 4 == 0 && (size_t)weights % 16 == 0;
-  local_tap_sum_kernel<SQ><<<grid, kThreads, smem, stream>>>(
+  // float32 weights go in 16-byte pieces when a pixel's row of taps allows
+  const bool w16 = std::is_same<T, float>::value && levels % 4 == 0 &&
+                   (size_t)weights % 16 == 0;
+  local_tap_sum_kernel<T, SQ><<<grid, kThreads, smem, stream>>>(
       lv, weights, out, levels, h4, w4, c, heads, used, w16);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (bound with ctypes).  `values` is a host array of
-// `levels` device pointers, `level_hw` a host array of (h_l, w_l) pairs and
-// `dils` a host array of `levels` ints.  The wrapper
-// (busca_tpu_torch/ops/lma_cuda.py) checks shapes, 1 <= h_l <= h4 and
-// 1 <= w_l <= w4, (C / heads) % 8 == 0, 16-byte alignment and levels <= 8.  Launches on `stream` and returns the cudaError_t of the
-// launch (0 = success); it does not synchronize.
-extern "C" int local_tap_sum_launch(const float* const* values,
-                                    const int* level_hw, const int* dils,
-                                    int levels, const float* weights, int h4,
-                                    int w4, int c, int heads, float* out,
-                                    void* stream) {
+template <typename T>
+int launch(const void* const* values, const int* level_hw, const int* dils,
+           int levels, const void* weights, int h4, int w4, int c, int heads,
+           void* out, void* stream) {
   if (levels <= 0 || levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   if (h4 <= 0 || w4 <= 0 || c <= 0) return 0;
-  Levels lv = {};
+  Levels<T> lv = {};
   for (int l = 0; l < levels; ++l) {
-    lv.v[l] = values[l];
+    lv.v[l] = static_cast<const T*>(values[l]);
     lv.h[l] = level_hw[2 * l];
     lv.w[l] = level_hw[2 * l + 1];
     lv.dil[l] = dils[l];
   }
-  // the slice: 4 float4 groups where the head has a multiple of 16
-  // channels (32 in the MOT17 decoder), else 2 (8 in the tiny one), so
-  // that a slice lies in one head
-  const int head_quads = c / heads / 4;
-  if (head_quads % 2) return (int)cudaErrorInvalidValue;
+  const T* wts = static_cast<const T*>(weights);
+  T* o = static_cast<T*>(out);
   const cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err =
-      head_quads % 4 == 0
-          ? launch_sq<4>(lv, weights, out, levels, h4, w4, c, heads, s)
-          : launch_sq<2>(lv, weights, out, levels, h4, w4, c, heads, s);
+  // the slice lies in one head: in float32 4 groups of 4 channels where
+  // the head has a multiple of 16 (32 in the MOT17 decoder), else 2 (8 in
+  // the tiny one); in bf16 2 groups of 8, else 1
+  const int head_groups = c / heads / Group<T>::N;
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    if (head_groups % 2) return (int)cudaErrorInvalidValue;
+    err = head_groups % 4 == 0
+              ? launch_sq<T, 4>(lv, wts, o, levels, h4, w4, c, heads, s)
+              : launch_sq<T, 2>(lv, wts, o, levels, h4, w4, c, heads, s);
+  } else {
+    if (head_groups < 1) return (int)cudaErrorInvalidValue;
+    err = head_groups % 2 == 0
+              ? launch_sq<T, 2>(lv, wts, o, levels, h4, w4, c, heads, s)
+              : launch_sq<T, 1>(lv, wts, o, levels, h4, w4, c, heads, s);
+  }
   return (int)err;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes), one per element type: float32
+// and bf16 (__nv_bfloat16) values, weights and output.  `values` is a host
+// array of `levels` device pointers, `level_hw` a host array of (h_l, w_l)
+// pairs and `dils` a host array of `levels` ints.  The wrapper
+// (busca_tpu_torch/ops/lma_cuda.py) checks dtypes, shapes, 1 <= h_l <= h4
+// and 1 <= w_l <= w4, (C / heads) % 8 == 0, 16-byte alignment and
+// levels <= 8.  Each launches on `stream` and returns the cudaError_t of
+// the launch (0 = success); it does not synchronize.
+extern "C" int local_tap_sum_launch(const void* const* values,
+                                    const int* level_hw, const int* dils,
+                                    int levels, const void* weights, int h4,
+                                    int w4, int c, int heads, void* out,
+                                    void* stream) {
+  return launch<float>(values, level_hw, dils, levels, weights, h4, w4, c,
+                       heads, out, stream);
+}
+
+extern "C" int local_tap_sum_bf16_launch(const void* const* values,
+                                         const int* level_hw, const int* dils,
+                                         int levels, const void* weights,
+                                         int h4, int w4, int c, int heads,
+                                         void* out, void* stream) {
+  return launch<__nv_bfloat16>(values, level_hw, dils, levels, weights, h4,
+                               w4, c, heads, out, stream);
 }

@@ -509,7 +509,9 @@ class TransCenterDetector:
         self._pre_canvas = canvas  # the device copy, for the next frame
 
         boxes = boxes.cpu().numpy()
-        scores = scores.cpu().numpy()
+        # a bf16 model's scores are bf16 (busca_tpu hands them to numpy as
+        # they are); float32 holds them exactly
+        scores = scores.to(torch.float32).cpu().numpy()
         valid = valid.cpu().numpy() & np.isfinite(scores)
         return DetectorOutput(
             boxes_tlbr=boxes[valid].astype(np.float64),

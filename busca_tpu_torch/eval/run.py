@@ -25,7 +25,11 @@ Example::
 Without ``--busca-config`` the model is ``BuscaConfig()`` (ResNet-50,
 d=512, 4 layers, 4 heads, ff 1024); without ``--busca-ckpt`` its weights are
 random, drawn from ``--seed``; without ``--detector-ckpt`` so are the
-detector's.
+detector's.  ``--busca-dtype`` (default ``bfloat16``, as busca_tpu's CLI)
+is BUSCA's compute dtype; ``float32`` is the parity mode.  The detectors
+take their dtype from their configs only, as in busca_tpu.  On the card the
+CLI turns TF32 off and keeps bf16 products' reductions in float32
+(:func:`~busca_tpu_torch.utils.device.set_card_precision`).
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ import torch
 
 def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
                  device="cuda", crop_hw=(384, 128),
-                 bank_slots: Optional[int] = None, seed: int = 0):
+                 bank_slots: Optional[int] = None, seed: int = 0,
+                 dtype: Optional[str] = None):
     """An :class:`~busca_tpu_torch.assoc.engine.AssociationEngine` on
     ``device``.
 
@@ -52,6 +57,9 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
       device: ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
       bank_slots: device crop-bank capacity; None = 4096 on CUDA (~600 MB
         at 384x128), 256 on the CPU; 0 disables banking.
+      dtype: overrides the config's compute dtype ("float32" or
+        "bfloat16"), as busca_tpu's ``build_engine``; the CLI passes its
+        ``--busca-dtype``.  The weights stay float32.
     Returns:
       ``(engine, tracker_kwargs)``.
     """
@@ -66,9 +74,10 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
         from busca_tpu_torch.config.options import load_tracker_bundle
 
         _, busca_cfg, tracker_kwargs = load_tracker_bundle(config)
-        busca_cfg = dataclasses.replace(busca_cfg, dtype="float32")
     else:
         busca_cfg, tracker_kwargs = BuscaConfig(), {}
+    if dtype is not None:  # busca_tpu/eval/run.py:76-77
+        busca_cfg = dataclasses.replace(busca_cfg, dtype=dtype)
     model = BuscaModel(busca_cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
     if ckpt:
@@ -246,6 +255,11 @@ def main(argv=None):
     parser.add_argument("--busca-ckpt", default=None,
                         help=".npz or reference .pth weights; default: "
                              "random weights from --seed")
+    parser.add_argument("--busca-dtype", default="bfloat16",
+                        choices=["bfloat16", "float32"],
+                        help="BUSCA compute dtype: bfloat16 (the production "
+                             "default, as busca_tpu's) or float32 (parity "
+                             "mode); the weights stay float32")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=0)
@@ -300,11 +314,15 @@ def main(argv=None):
         parser.error("--detector centertrack is not ported yet (ROADMAP.md "
                      "Queue 1 item 18)")
 
+    from busca_tpu_torch.utils.device import set_card_precision
+
+    set_card_precision()
     engine, tracker_kwargs = None, {}
     if args.use_busca:
         engine, tracker_kwargs = build_engine(
             args.busca_config, args.busca_ckpt, args.device, args.crop_hw,
             bank_slots=args.crop_bank_slots, seed=args.seed,
+            dtype=args.busca_dtype,
         )
         tracker_kwargs["use_busca"] = True
     if args.cmc_scale != 1.0:

@@ -15,6 +15,13 @@ LayerNorm + Linear decoder over the CAN positions.  Module names are the
 reference's (``reid_encoder.model``, ``encoder``, ``transformer_encoder``,
 ``decoder.0/1``), so ``model_busca.pth`` loads with ``load_state_dict``.
 Inference only: no dropout.
+
+``BuscaConfig.dtype`` ("float32" or "bfloat16"; both CLIs default to
+bfloat16, busca_tpu's production mode) is the ReID's and the Transformer's
+compute dtype, with flax's
+rules on float32 parameters (``models/precision.py``); the encoder linear,
+the positional encodings and the decoder have none, so the logits are
+float32 in both modes (busca_tpu/models/busca.py:271, 325-348).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from torch import nn
 
 from busca_tpu_torch.models import encodings
+from busca_tpu_torch.models.precision import compute_dtype
 from busca_tpu_torch.models.reid import ReIDResNet
 from busca_tpu_torch.models.transformer import (
     TorchLinear,
@@ -107,15 +115,12 @@ class BuscaModel(nn.Module):
 
     def __init__(self, config: BuscaConfig = BuscaConfig()):
         super().__init__()
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                "the port computes in float32 (bf16 is a later slice)"
-            )
         self.config = cfg = config
+        dtype = compute_dtype(cfg.dtype)
         d_model = cfg.trans_dim
         self.reid_encoder = _ReIDEncoder(ReIDResNet(
             layers=cfg.reid_layers, num_classes=cfg.reid_num_classes,
-            use_batch_stats=cfg.reid_use_batch_stats,
+            use_batch_stats=cfg.reid_use_batch_stats, dtype=dtype,
         ))
         self.encoder = TorchLinear(cfg.dim_embedding, d_model)
         tok = cfg.dim_embedding if cfg.encode_special_tokens else d_model
@@ -127,7 +132,7 @@ class BuscaModel(nn.Module):
             else None
         self.transformer_encoder = TransformerEncoder(
             cfg.num_layer, d_model, cfg.nhead, cfg.ff_size,
-            get_activation(cfg.activation),
+            get_activation(cfg.activation), dtype,
         )
         self.decoder = nn.Sequential(nn.LayerNorm(d_model, eps=1e-5),
                                      TorchLinear(d_model, 1))
@@ -255,7 +260,9 @@ class BuscaModel(nn.Module):
         positions = can_token_positions(
             l_mem, c + cfg.num_extra_candidates, cfg.input_flavour
         )
-        can_out = out[:, list(positions), :]
+        # busca.py:344-345: decoder_norm and decoder_linear carry no dtype,
+        # so a bf16 Transformer output is promoted to their float32 params
+        can_out = out[:, list(positions), :].to(torch.float32)
         logits = self.decoder(can_out)[..., 0]
         if return_att:
             return logits, attentions

@@ -13,8 +13,13 @@ is written as plain tensor ops; ``nn.BatchNorm2d`` in train mode would
 mutate its running statistics and cannot mask lanes.
 
 Inputs are NHWC ``[N, H, W, 3]`` like the JAX module; the convolutions run in
-NCHW.  Module and parameter names are the reference's, so a reference state
-dict (``reid_encoder.model.*`` of ``model_busca.pth``) loads directly.
+NCHW.  ``dtype`` is busca_tpu's ``ReIDResNet(dtype=...)``: the input is cast
+to it, the convolutions compute in it (flax ``nn.Conv(dtype=...)``, see
+``models/precision.py``), BatchNorm keeps float32 statistics and returns the
+input's dtype, and the pooled features go back to float32 before the
+float32 ``red`` and ``fc`` linears.  Module and parameter names are the
+reference's, so a reference state dict (``reid_encoder.model.*`` of
+``model_busca.pth``) loads directly.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from busca_tpu_torch.models.precision import Conv2d
 from busca_tpu_torch.models.transformer import TorchLinear
 
 PRETRAINED_SIZE = (384, 128)  # (H, W) crop size the weights were trained with
@@ -103,12 +109,17 @@ class BatchNorm(nn.Module):
                 return y.to(x.dtype)
         var = torch.clamp(var, min=0.0)
         inv = torch.reciprocal(torch.sqrt(var + self.eps))
+        # busca_tpu/models/reid.py:141-143: float32 statistics and affine,
+        # the result in the input's dtype
         return self._affine(x, mean, inv).to(x.dtype)
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-          padding: int = 0) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride, padding, bias=False)
+          padding: int = 0, dtype: torch.dtype = torch.float32) -> Conv2d:
+    # busca_tpu/models/reid.py:161-170: nn.Conv(dtype=...) casts the input
+    # and the kernel
+    return Conv2d(in_ch, out_ch, kernel, stride, padding, bias=False,
+                  dtype=dtype)
 
 
 class Bottleneck(nn.Module):
@@ -116,18 +127,19 @@ class Bottleneck(nn.Module):
     ReLU; ``downsample`` = [conv, bn] (reference keys ``downsample.0/1``)."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False, use_batch_stats: bool = True):
+                 has_downsample: bool = False, use_batch_stats: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = planes * 4
-        self.conv1 = _conv(in_ch, planes, 1)
+        self.conv1 = _conv(in_ch, planes, 1, dtype=dtype)
         self.bn1 = BatchNorm(planes, use_batch_stats=use_batch_stats)
-        self.conv2 = _conv(planes, planes, 3, stride, 1)
+        self.conv2 = _conv(planes, planes, 3, stride, 1, dtype=dtype)
         self.bn2 = BatchNorm(planes, use_batch_stats=use_batch_stats)
-        self.conv3 = _conv(planes, out_ch, 1)
+        self.conv3 = _conv(planes, out_ch, 1, dtype=dtype)
         self.bn3 = BatchNorm(out_ch, use_batch_stats=use_batch_stats)
         self.downsample = (
             nn.ModuleList([
-                _conv(in_ch, out_ch, 1, stride),
+                _conv(in_ch, out_ch, 1, stride, dtype=dtype),
                 BatchNorm(out_ch, use_batch_stats=use_batch_stats),
             ])
             if has_downsample else None
@@ -150,10 +162,12 @@ class ReIDResNet(nn.Module):
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3),
                  num_classes: int = 299, red: int = 4,
-                 use_batch_stats: bool = True):
+                 use_batch_stats: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.red_factor = red
-        self.conv1 = _conv(3, 64, 7, 2, 3)
+        self.compute_dtype = dtype
+        self.conv1 = _conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = BatchNorm(64, use_batch_stats=use_batch_stats)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         in_ch = 64
@@ -166,7 +180,8 @@ class ReIDResNet(nn.Module):
                 s = stride if block == 0 else 1
                 has_ds = block == 0 and (s != 1 or in_ch != planes * 4)
                 stage_blocks.append(
-                    Bottleneck(in_ch, planes, s, has_ds, use_batch_stats)
+                    Bottleneck(in_ch, planes, s, has_ds, use_batch_stats,
+                               dtype)
                 )
                 in_ch = planes * 4
             # ModuleList, not Sequential: blocks take the sample mask too
@@ -180,12 +195,14 @@ class ReIDResNet(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x``: ``[N, H, W, 3]`` normalized NHWC crops; ``sample_mask``:
         ``[N]`` or ``[N, G]`` BN statistics weights."""
-        x = x.permute(0, 3, 1, 2).contiguous()
+        # busca_tpu/models/reid.py:225: x.astype(dtype) at entry
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous()
         x = torch.relu(self.bn1(self.conv1(x), sample_mask))
         x = self.maxpool(x)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 x = block(x, sample_mask)
+        # busca_tpu/models/reid.py:259: the pooled features back to float32
         fc7 = x.amax(dim=(2, 3)).to(torch.float32)  # [N, 2048]
         if self.red is not None:
             fc7 = self.red(fc7)

@@ -23,6 +23,12 @@ mechanical):
 
 Every LayerNorm uses flax's epsilon, 1e-6 (torch's default is 1e-5).  The
 spatial-reduction convolution pads like flax's ``"SAME"``.
+
+``TransCenterConfig.dtype`` ("float32" or "bfloat16") is every layer's
+compute dtype, with flax's rules on float32 parameters
+(``models/precision.py``): in bf16 the convolutions, linears and LayerNorms
+return bf16, the level maps and the softmaxed tap weights reach K2 in bf16,
+and the five output maps are bf16, as busca_tpu's.
 """
 
 from __future__ import annotations
@@ -36,6 +42,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from busca_tpu_torch.models.precision import (
+    Conv2d,
+    LayerNorm,
+    Linear,
+    compute_dtype,
+    conv1x1,
+    product,
+)
 from busca_tpu_torch.ops.lma import local_tap_sum_levels
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -48,8 +62,9 @@ DEFORMABLE_TODO = (
 )
 
 
-def _layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=LN_EPS)
+def _layer_norm(dim: int, dtype: torch.dtype) -> LayerNorm:
+    # nn.LayerNorm(dtype=...): float32 statistics, the output in dtype
+    return LayerNorm(dim, LN_EPS, dtype)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -58,11 +73,6 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
-
-
-def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 convolution on an NHWC tensor, as the matrix product it is."""
-    return F.linear(x, conv.weight.flatten(1), conv.bias)
 
 
 def same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -78,10 +88,11 @@ def same_padding(n: int, k: int, s: int) -> Tuple[int, int]:
 class OverlapPatchEmbed(nn.Module):
     """Strided-conv patch embedding (PVTv2's overlapping patches)."""
 
-    def __init__(self, in_ch: int, dim: int, patch: int = 7, stride: int = 4):
+    def __init__(self, in_ch: int, dim: int, patch: int = 7, stride: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Conv2d(in_ch, dim, patch, stride, patch // 2)
-        self.norm = _layer_norm(dim)
+        self.proj = Conv2d(in_ch, dim, patch, stride, patch // 2, dtype=dtype)
+        self.norm = _layer_norm(dim, dtype)
 
     def forward(self, x):  # [B, H, W, in] -> [B, H/s, W/s, dim]
         return self.norm(_nhwc(self.proj(_nchw(x))))
@@ -91,15 +102,16 @@ class SRAttention(nn.Module):
     """PVTv2 spatial-reduction attention: keys/values from a sr_ratio-strided
     reduction of the feature map, queries dense."""
 
-    def __init__(self, dim: int, heads: int, sr_ratio: int = 1):
+    def __init__(self, dim: int, heads: int, sr_ratio: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.heads, self.sr_ratio = dim, heads, sr_ratio
-        self.q = nn.Linear(dim, dim)
+        self.q = Linear(dim, dim, dtype=dtype)
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
-            self.sr_norm = _layer_norm(dim)
-        self.kv = nn.Linear(dim, 2 * dim)
-        self.proj = nn.Linear(dim, dim)
+            self.sr = Conv2d(dim, dim, sr_ratio, sr_ratio, dtype=dtype)
+            self.sr_norm = _layer_norm(dim, dtype)
+        self.kv = Linear(dim, 2 * dim, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, x, hw: Tuple[int, int]):
         b, n, c = x.shape
@@ -120,8 +132,13 @@ class SRAttention(nn.Module):
             return t.reshape(b, -1, self.heads, head_dim).transpose(1, 2)
 
         q, k, v = heads_split(q), heads_split(k), heads_split(v)
-        attn = (q @ k.transpose(-2, -1)) / math.sqrt(head_dim)
-        out = attn.softmax(dim=-1) @ v
+        # busca_tpu/models/transcenter.py:108-110: the logits come out of
+        # the einsum in the compute dtype, and dividing by np.sqrt's float64
+        # promotes them to float32; the float32 weights promote v for the
+        # second einsum
+        attn = product(torch.matmul, q, k.transpose(-2, -1)).to(
+            torch.float32) / math.sqrt(head_dim)
+        out = attn.softmax(dim=-1) @ v.to(torch.float32)
         out = out.transpose(1, 2).reshape(b, n, self.dim)
         return self.proj(out)
 
@@ -129,12 +146,14 @@ class SRAttention(nn.Module):
 class MixFFN(nn.Module):
     """PVTv2 feed-forward with a 3x3 depthwise conv between the linears."""
 
-    def __init__(self, dim: int, ratio: int):
+    def __init__(self, dim: int, ratio: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = dim * ratio
-        self.fc1 = nn.Linear(dim, hidden)
-        self.dwconv = nn.Conv2d(hidden, hidden, 3, 1, 1, groups=hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden, dtype=dtype)
+        self.dwconv = Conv2d(hidden, hidden, 3, 1, 1, groups=hidden,
+                             dtype=dtype)
+        self.fc2 = Linear(hidden, dim, dtype=dtype)
 
     def forward(self, x, hw: Tuple[int, int]):
         b, n, _ = x.shape
@@ -147,16 +166,18 @@ class MixFFN(nn.Module):
 
 class PVTv2Stage(nn.Module):
     def __init__(self, in_ch: int, dim: int, heads: int, depth: int,
-                 mlp_ratio: int, sr_ratio: int, patch: int, stride: int):
+                 mlp_ratio: int, sr_ratio: int, patch: int, stride: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
-        self.embed = OverlapPatchEmbed(in_ch, dim, patch, stride)
+        self.embed = OverlapPatchEmbed(in_ch, dim, patch, stride, dtype)
         for i in range(depth):
-            setattr(self, f"norm1_{i}", _layer_norm(dim))
-            setattr(self, f"attn_{i}", SRAttention(dim, heads, sr_ratio))
-            setattr(self, f"norm2_{i}", _layer_norm(dim))
-            setattr(self, f"ffn_{i}", MixFFN(dim, mlp_ratio))
-        self.norm = _layer_norm(dim)
+            setattr(self, f"norm1_{i}", _layer_norm(dim, dtype))
+            setattr(self, f"attn_{i}", SRAttention(dim, heads, sr_ratio,
+                                                   dtype))
+            setattr(self, f"norm2_{i}", _layer_norm(dim, dtype))
+            setattr(self, f"ffn_{i}", MixFFN(dim, mlp_ratio, dtype))
+        self.norm = _layer_norm(dim, dtype)
 
     def forward(self, x):
         x = self.embed(x)
@@ -175,13 +196,14 @@ class PVTv2(nn.Module):
 
     def __init__(self, dims=(64, 128, 320, 512), heads=(1, 2, 5, 8),
                  depths=(3, 4, 6, 3), mlp_ratios=(8, 8, 4, 4),
-                 sr_ratios=(8, 4, 2, 1)):
+                 sr_ratios=(8, 4, 2, 1), dtype: torch.dtype = torch.float32):
         super().__init__()
         for s in range(4):
             setattr(self, f"stage{s}", PVTv2Stage(
                 3 if s == 0 else dims[s - 1], dims[s], heads[s], depths[s],
                 mlp_ratios[s], sr_ratios[s],
                 patch=7 if s == 0 else 3, stride=4 if s == 0 else 2,
+                dtype=dtype,
             ))
 
     def forward(self, x) -> List[torch.Tensor]:
@@ -208,17 +230,21 @@ class LocalMultiScaleAttention(nn.Module):
     which interpolates inside the kernel).
     """
 
-    def __init__(self, dim: int, heads: int = 8, levels: int = 4):
+    def __init__(self, dim: int, heads: int = 8, levels: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.heads, self.levels = dim, heads, levels
-        self.weights = nn.Linear(dim, heads * levels * 9)
+        self.weights = Linear(dim, heads * levels * 9, dtype=dtype)
         for lvl in range(levels):
-            setattr(self, f"value_{lvl}", nn.Linear(dim, dim))
-        self.proj = nn.Linear(dim, dim)
+            setattr(self, f"value_{lvl}", Linear(dim, dim, dtype=dtype))
+        self.proj = Linear(dim, dim, dtype=dtype)
 
     def forward(self, queries, level_maps: Sequence[torch.Tensor]):
         """queries ``[B, H4, W4, C]``; level_maps: ``[B, h_l, w_l, C]``."""
         b, h4, w4, _ = queries.shape
+        # busca_tpu/models/transcenter.py:285-291: the logits and their
+        # softmax in the compute dtype; in bf16 the tap weights reach K2 as
+        # bf16
         w = self.weights(queries).reshape(b, h4, w4, self.heads,
                                           self.levels * 9).softmax(dim=-1)
         vs = [getattr(self, f"value_{lvl}")(fmap)
@@ -238,17 +264,17 @@ class DecoderLayer(nn.Module):
     port both are the same :class:`LocalMultiScaleAttention`."""
 
     def __init__(self, dim: int, heads: int, levels: int = 4,
-                 sampling: str = "local"):
+                 sampling: str = "local", dtype: torch.dtype = torch.float32):
         super().__init__()
         if sampling not in ("local", "local_pallas"):
             raise NotImplementedError(DEFORMABLE_TODO)
-        self.ln1 = _layer_norm(dim)
-        self.cross_cur = LocalMultiScaleAttention(dim, heads, levels)
-        self.ln2 = _layer_norm(dim)
-        self.cross_pre = LocalMultiScaleAttention(dim, heads, levels)
-        self.ln3 = _layer_norm(dim)
-        self.fc1 = nn.Linear(dim, dim * FFN_RATIO)
-        self.fc2 = nn.Linear(dim * FFN_RATIO, dim)
+        self.ln1 = _layer_norm(dim, dtype)
+        self.cross_cur = LocalMultiScaleAttention(dim, heads, levels, dtype)
+        self.ln2 = _layer_norm(dim, dtype)
+        self.cross_pre = LocalMultiScaleAttention(dim, heads, levels, dtype)
+        self.ln3 = _layer_norm(dim, dtype)
+        self.fc1 = Linear(dim, dim * FFN_RATIO, dtype=dtype)
+        self.fc2 = Linear(dim * FFN_RATIO, dim, dtype=dtype)
 
     def forward(self, q, mem_cur, mem_pre, shapes):
         """q ``[B, H4*W4, C]``; mem_*: per-level ``[B, h_l, w_l, C]``;
@@ -328,26 +354,27 @@ class TransCenterDETR(nn.Module):
     def __init__(self, config: TransCenterConfig = TransCenterConfig()):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError("the port runs TransCenter in float32")
+        dtype = compute_dtype(cfg.dtype)
         if cfg.sampling not in ("local", "local_pallas"):
             raise NotImplementedError(DEFORMABLE_TODO)
         hid = cfg.hidden_dim
+        dt = dict(dtype=dtype)
         self.pvt = PVTv2(cfg.dims, cfg.heads, cfg.depths, cfg.mlp_ratios,
-                         cfg.sr_ratios)
+                         cfg.sr_ratios, dtype)
         for lvl in range(4):
-            setattr(self, f"input_proj_{lvl}", nn.Conv2d(cfg.dims[lvl], hid, 1))
-        self.query_proj = nn.Conv2d(cfg.dims[0], hid, 1)
-        self.pre_hm_embed = nn.Conv2d(1, hid, 3, 1, 1)
+            setattr(self, f"input_proj_{lvl}",
+                    Conv2d(cfg.dims[lvl], hid, 1, **dt))
+        self.query_proj = Conv2d(cfg.dims[0], hid, 1, **dt)
+        self.pre_hm_embed = Conv2d(1, hid, 3, 1, 1, **dt)
         for i in range(cfg.num_decoder_layers):
             setattr(self, f"dec_{i}", DecoderLayer(
-                hid, cfg.dec_heads, 4, sampling=cfg.sampling))
-        self.dec_norm = _layer_norm(hid)
+                hid, cfg.dec_heads, 4, sampling=cfg.sampling, dtype=dtype))
+        self.dec_norm = _layer_norm(hid, dtype)
         out_ch = {"hm": cfg.num_classes, "reg": 2, "wh": 2, "tracking": 2,
                   "reid": cfg.reid_dim}
         for name in HEADS:
-            setattr(self, f"{name}_conv", nn.Conv2d(hid, hid, 3, 1, 1))
-            setattr(self, f"{name}_out", nn.Conv2d(hid, out_ch[name], 1))
+            setattr(self, f"{name}_conv", Conv2d(hid, hid, 3, 1, 1, **dt))
+            setattr(self, f"{name}_out", Conv2d(hid, out_ch[name], 1, **dt))
 
     def init_weights(self, generator: torch.Generator):
         """Seeded random weights with flax's initialisers: lecun-normal

@@ -8,6 +8,11 @@ the parameters keep the reference torch names and layouts
 (``self_attn.in_proj_weight [3d, d]``, ``self_attn.out_proj``,
 ``linear1``/``linear2``, ``norm1``/``norm2``), so reference state dicts load
 with ``load_state_dict``.  Inference only: there is no dropout.
+
+``dtype`` (busca_tpu's ``TransformerEncoder(dtype=...)``) sets the
+LayerNorms' output dtype only: the float32 linears promote a bf16 input to
+float32, so in bfloat16 the products stay float32 and the LayerNorms round
+their outputs to bf16 (``models/precision.py``).
 """
 
 from __future__ import annotations
@@ -17,10 +22,21 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from busca_tpu_torch.models.precision import LayerNorm
 
-# The JAX package's TorchLinear(features_in, features_out) keeps torch's
-# [out, in] weight layout; in torch that is nn.Linear itself.
-TorchLinear = nn.Linear
+
+def _promoted(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # busca_tpu/models/transformer.py:24-29: x @ w.T with float32 params
+    # promotes a bf16 x to float32 (torch's matmul takes one dtype)
+    return x.to(torch.promote_types(x.dtype, w.dtype))
+
+
+class TorchLinear(nn.Linear):
+    """busca_tpu's ``TorchLinear``: torch's ``[out, in]`` weight layout, and
+    ``x @ w.T + b`` with jnp's type promotion of the input."""
+
+    def forward(self, x):
+        return super().forward(_promoted(x, self.weight))
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -40,7 +56,8 @@ class MultiHeadSelfAttention(nn.Module):
         b, l, d = x.shape
         h = self.nhead
         head_dim = d // h
-        qkv = nn.functional.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = nn.functional.linear(_promoted(x, self.in_proj_weight),
+                                   self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.chunk(3, dim=-1)
 
         def split_heads(t):  # [B, L, d] -> [B, h, L, head_dim]
@@ -61,17 +78,20 @@ class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder block (busca/custom_layers.py:30-41)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 activation: Optional[Callable] = None):
+                 activation: Optional[Callable] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.self_attn = MultiHeadSelfAttention(d_model, nhead)
         self.linear1 = TorchLinear(d_model, dim_feedforward)
         self.linear2 = TorchLinear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        # nn.LayerNorm(dtype=bf16): float32 statistics, bf16 output
+        self.norm1 = LayerNorm(d_model, 1e-5, dtype)
+        self.norm2 = LayerNorm(d_model, 1e-5, dtype)
         self.activation = activation if activation is not None else gelu_exact
 
     def forward(self, src: torch.Tensor):
         attn_out, weights = self.self_attn(src)
+        # a bf16 src plus the float32 attention output is float32, as in jnp
         src = self.norm1(src + attn_out)
         ff = self.linear2(self.activation(self.linear1(src)))
         src = self.norm2(src + ff)
@@ -82,11 +102,12 @@ class TransformerEncoder(nn.Module):
     """Stack of encoder layers, returning per-layer attention maps."""
 
     def __init__(self, num_layers: int, d_model: int, nhead: int,
-                 dim_feedforward: int, activation: Optional[Callable] = None):
+                 dim_feedforward: int, activation: Optional[Callable] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward,
-                                    activation)
+                                    activation, dtype)
             for _ in range(num_layers)
         )
 

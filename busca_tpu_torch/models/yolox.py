@@ -18,6 +18,12 @@ weight``, ``backbone.C3_p4.m.0.conv1.bn.running_mean``, ``head.stems.0...``,
 official eps, 1e-3.  The Focus stem is the official strided-slice form
 (concat order tl, bl, tr, br); busca_tpu computes the same linear map as
 0/1 selection einsums, exactly.
+
+``YoloxConfig.dtype`` ("float32" or "bfloat16") is every convolution's
+compute dtype, with flax's ``nn.Conv(dtype=...)`` rule on float32 parameters
+(``models/precision.py``); BatchNorm keeps its float32 statistics and
+affine and returns the input's dtype (busca_tpu's ``BatchNorm``), and the
+decode runs in the head's dtype, as busca_tpu's does.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from busca_tpu_torch.models.precision import Conv2d, compute_dtype
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -46,10 +54,12 @@ class ConvBnAct(nn.Module):
     """Conv (no bias) + BatchNorm + SiLU: the official ``BaseConv``."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1,
-                 act: bool = True):
+                 act: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
-                              bias=False)
+        # busca_tpu/models/yolox.py:48-57: nn.Conv(dtype=...); the BN's
+        # float32 statistics return the input's dtype (reid.py:141-143)
+        self.conv = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
+                           bias=False, dtype=dtype)
         self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
 
@@ -60,9 +70,13 @@ class ConvBnAct(nn.Module):
 class Focus(nn.Module):
     """Space-to-depth stem: (C, H, W) -> (4C, H/2, W/2) -> ConvBnAct."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 3):
+    def __init__(self, cin: int, cout: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = ConvBnAct(cin * 4, cout, kernel)
+        # busca_tpu/models/yolox.py:116 casts the image to the compute
+        # dtype (xd) before its exact 0/1 space-to-depth selections; here
+        # the convolution's own cast of the selected pixels is the same
+        self.conv = ConvBnAct(cin * 4, cout, kernel, dtype=dtype)
 
     def forward(self, x):
         tl = x[..., ::2, ::2]
@@ -74,11 +88,11 @@ class Focus(nn.Module):
 
 class Bottleneck(nn.Module):
     def __init__(self, cin: int, cout: int, shortcut: bool = True,
-                 expansion: float = 0.5):
+                 expansion: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(cout * expansion)
-        self.conv1 = ConvBnAct(cin, hidden, 1)
-        self.conv2 = ConvBnAct(hidden, cout, 3)
+        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
+        self.conv2 = ConvBnAct(hidden, cout, 3, dtype=dtype)
         self.use_add = shortcut and cin == cout
 
     def forward(self, x):
@@ -90,11 +104,12 @@ class SPPBottleneck(nn.Module):
     """SPP with 5/9/13 max pools, computed as chained 5x5 pools (SPPF):
     max is associative and the -inf padding keeps the borders equal."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = cin // 2
-        self.conv1 = ConvBnAct(cin, hidden, 1)
-        self.conv2 = ConvBnAct(hidden * 4, cout, 1)
+        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
+        self.conv2 = ConvBnAct(hidden * 4, cout, 1, dtype=dtype)
 
     def forward(self, x):
         x = self.conv1(x)
@@ -106,14 +121,15 @@ class SPPBottleneck(nn.Module):
 
 class CSPLayer(nn.Module):
     def __init__(self, cin: int, cout: int, n: int = 1,
-                 shortcut: bool = True, expansion: float = 0.5):
+                 shortcut: bool = True, expansion: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = int(cout * expansion)
-        self.conv1 = ConvBnAct(cin, hidden, 1)
-        self.conv2 = ConvBnAct(cin, hidden, 1)
-        self.conv3 = ConvBnAct(2 * hidden, cout, 1)
-        self.m = nn.Sequential(*[Bottleneck(hidden, hidden, shortcut, 1.0)
-                                 for _ in range(n)])
+        self.conv1 = ConvBnAct(cin, hidden, 1, dtype=dtype)
+        self.conv2 = ConvBnAct(cin, hidden, 1, dtype=dtype)
+        self.conv3 = ConvBnAct(2 * hidden, cout, 1, dtype=dtype)
+        self.m = nn.Sequential(*[Bottleneck(hidden, hidden, shortcut, 1.0,
+                                            dtype) for _ in range(n)])
 
     def forward(self, x):
         main = self.m(self.conv1(x))
@@ -121,21 +137,23 @@ class CSPLayer(nn.Module):
 
 
 class CSPDarknet(nn.Module):
-    def __init__(self, depth: float = 0.33, width: float = 0.50):
+    def __init__(self, depth: float = 0.33, width: float = 0.50,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w = lambda c: int(c * width)  # noqa: E731
         d = lambda n: _round_repeats(n, depth)  # noqa: E731
-        self.stem = Focus(3, w(64), 3)
-        self.dark2 = nn.Sequential(ConvBnAct(w(64), w(128), 3, 2),
-                                   CSPLayer(w(128), w(128), d(3)))
-        self.dark3 = nn.Sequential(ConvBnAct(w(128), w(256), 3, 2),
-                                   CSPLayer(w(256), w(256), d(9)))
-        self.dark4 = nn.Sequential(ConvBnAct(w(256), w(512), 3, 2),
-                                   CSPLayer(w(512), w(512), d(9)))
+        dt = dict(dtype=dtype)
+        self.stem = Focus(3, w(64), 3, **dt)
+        self.dark2 = nn.Sequential(ConvBnAct(w(64), w(128), 3, 2, **dt),
+                                   CSPLayer(w(128), w(128), d(3), **dt))
+        self.dark3 = nn.Sequential(ConvBnAct(w(128), w(256), 3, 2, **dt),
+                                   CSPLayer(w(256), w(256), d(9), **dt))
+        self.dark4 = nn.Sequential(ConvBnAct(w(256), w(512), 3, 2, **dt),
+                                   CSPLayer(w(512), w(512), d(9), **dt))
         self.dark5 = nn.Sequential(
-            ConvBnAct(w(512), w(1024), 3, 2),
-            SPPBottleneck(w(1024), w(1024)),
-            CSPLayer(w(1024), w(1024), d(3), shortcut=False))
+            ConvBnAct(w(512), w(1024), 3, 2, **dt),
+            SPPBottleneck(w(1024), w(1024), **dt),
+            CSPLayer(w(1024), w(1024), d(3), shortcut=False, **dt))
 
     def forward(self, x):
         x = self.dark2(self.stem(x))
@@ -151,19 +169,22 @@ def _upsample2x(x):
 
 
 class PAFPN(nn.Module):
-    def __init__(self, depth: float = 0.33, width: float = 0.50):
+    def __init__(self, depth: float = 0.33, width: float = 0.50,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w = lambda c: int(c * width)  # noqa: E731
         d = lambda n: _round_repeats(n, depth)  # noqa: E731
-        self.backbone = CSPDarknet(depth, width)
-        self.lateral_conv0 = ConvBnAct(w(1024), w(512), 1)
-        self.C3_p4 = CSPLayer(2 * w(512), w(512), d(3), shortcut=False)
-        self.reduce_conv1 = ConvBnAct(w(512), w(256), 1)
-        self.C3_p3 = CSPLayer(2 * w(256), w(256), d(3), shortcut=False)
-        self.bu_conv2 = ConvBnAct(w(256), w(256), 3, 2)
-        self.C3_n3 = CSPLayer(2 * w(256), w(512), d(3), shortcut=False)
-        self.bu_conv1 = ConvBnAct(w(512), w(512), 3, 2)
-        self.C3_n4 = CSPLayer(2 * w(512), w(1024), d(3), shortcut=False)
+        dt = dict(dtype=dtype)
+        self.backbone = CSPDarknet(depth, width, **dt)
+        self.lateral_conv0 = ConvBnAct(w(1024), w(512), 1, **dt)
+        self.C3_p4 = CSPLayer(2 * w(512), w(512), d(3), shortcut=False, **dt)
+        self.reduce_conv1 = ConvBnAct(w(512), w(256), 1, **dt)
+        self.C3_p3 = CSPLayer(2 * w(256), w(256), d(3), shortcut=False, **dt)
+        self.bu_conv2 = ConvBnAct(w(256), w(256), 3, 2, **dt)
+        self.C3_n3 = CSPLayer(2 * w(256), w(512), d(3), shortcut=False, **dt)
+        self.bu_conv1 = ConvBnAct(w(512), w(512), 3, 2, **dt)
+        self.C3_n4 = CSPLayer(2 * w(512), w(1024), d(3), shortcut=False,
+                              **dt)
 
     def forward(self, x):
         c3, c4, c5 = self.backbone(x)
@@ -178,9 +199,11 @@ class PAFPN(nn.Module):
 
 class YOLOXHead(nn.Module):
     def __init__(self, num_classes: int = 1, width: float = 0.50,
-                 in_channels: Sequence[int] = (256, 512, 1024)):
+                 in_channels: Sequence[int] = (256, 512, 1024),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         w = int(256 * width)
+        dt = dict(dtype=dtype)
         self.stems = nn.ModuleList()
         self.cls_convs = nn.ModuleList()
         self.reg_convs = nn.ModuleList()
@@ -188,14 +211,16 @@ class YOLOXHead(nn.Module):
         self.reg_preds = nn.ModuleList()
         self.obj_preds = nn.ModuleList()
         for c in in_channels:
-            self.stems.append(ConvBnAct(int(c * width), w, 1))
-            self.cls_convs.append(nn.Sequential(ConvBnAct(w, w, 3),
-                                                ConvBnAct(w, w, 3)))
-            self.reg_convs.append(nn.Sequential(ConvBnAct(w, w, 3),
-                                                ConvBnAct(w, w, 3)))
-            self.cls_preds.append(nn.Conv2d(w, num_classes, 1))
-            self.reg_preds.append(nn.Conv2d(w, 4, 1))
-            self.obj_preds.append(nn.Conv2d(w, 1, 1))
+            self.stems.append(ConvBnAct(int(c * width), w, 1, **dt))
+            self.cls_convs.append(nn.Sequential(ConvBnAct(w, w, 3, **dt),
+                                                ConvBnAct(w, w, 3, **dt)))
+            self.reg_convs.append(nn.Sequential(ConvBnAct(w, w, 3, **dt),
+                                                ConvBnAct(w, w, 3, **dt)))
+            # busca_tpu/models/yolox.py:321-326: the predictions'
+            # nn.Conv(dtype=...) adds its bias in the compute dtype
+            self.cls_preds.append(Conv2d(w, num_classes, 1, **dt))
+            self.reg_preds.append(Conv2d(w, 4, 1, **dt))
+            self.obj_preds.append(Conv2d(w, 1, 1, **dt))
 
     def forward(self, features):
         """Per level ``(reg [B, 4, h, w], obj [B, 1, h, w], cls [B, C, h,
@@ -237,12 +262,10 @@ class YOLOX(nn.Module):
 
     def __init__(self, config: YoloxConfig = YoloxConfig()):
         super().__init__()
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                "the port runs YOLOX in float32 (bf16 is ROADMAP item 27)")
         self.config = config
-        self.backbone = PAFPN(config.depth, config.width)
-        self.head = YOLOXHead(config.num_classes, config.width)
+        dtype = compute_dtype(config.dtype)
+        self.backbone = PAFPN(config.depth, config.width, dtype)
+        self.head = YOLOXHead(config.num_classes, config.width, dtype=dtype)
         self._grids = {}
 
     def init_weights(self, generator: torch.Generator) -> "YOLOX":
@@ -291,8 +314,9 @@ class YOLOX(nn.Module):
             # set before the BN runs, so that later layers see its output
             # as it will be; the floor (the layer's mean variance) keeps a
             # near-constant channel from amplifying other inputs' changes
-            var = args[0].var((0, 2, 3), unbiased=False)
-            bn.running_mean.copy_(args[0].mean((0, 2, 3)))
+            x = args[0].to(torch.float32)
+            var = x.var((0, 2, 3), unbiased=False)
+            bn.running_mean.copy_(x.mean((0, 2, 3)))
             bn.running_var.copy_(var + var.mean())
 
         hooks = [m.register_forward_pre_hook(measure)
@@ -323,14 +347,15 @@ class YOLOX(nn.Module):
         return decode_outputs(raw, self.config.strides, self._grids)
 
 
-def _grid(h: int, w: int, device, cache=None) -> torch.Tensor:
-    """``[h * w, 2]`` float32 (x, y) cell coordinates, row-major."""
-    key = (h, w, str(device))
+def _grid(h: int, w: int, device, cache=None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``[h * w, 2]`` (x, y) cell coordinates, row-major, in ``dtype``."""
+    key = (h, w, str(device), dtype)
     if cache is not None and key in cache:
         return cache[key]
     gy, gx = torch.meshgrid(torch.arange(h, device=device),
                             torch.arange(w, device=device), indexing="ij")
-    grid = torch.stack([gx, gy], -1).reshape(h * w, 2).to(torch.float32)
+    grid = torch.stack([gx, gy], -1).reshape(h * w, 2).to(dtype)
     if cache is not None:
         cache[key] = grid
     return grid
@@ -340,13 +365,17 @@ def decode_outputs(raw, strides: Sequence[int], grids=None) -> torch.Tensor:
     """Grid-decode head outputs to ``[B, N, 5 + C]``:
     ``xy = (pred + grid) * stride``, ``wh = exp(pred) * stride``, sigmoid
     obj/cls; the rows of each level in row-major (y, x) order.  ``grids``:
-    an optional dict caching the cell grids by shape and device."""
+    an optional dict caching the cell grids by shape and device.  The decode
+    runs in the head's dtype: in bf16, xy near x = 1400 lands on a spacing
+    of 8 canvas pixels, as in busca_tpu."""
     rows: List[torch.Tensor] = []
     for (reg, obj, cls), stride in zip(raw, strides):
         b, _, h, w = reg.shape
         out = torch.cat([reg, obj, cls], 1).permute(0, 2, 3, 1).reshape(
             b, h * w, -1)
-        grid = _grid(h, w, reg.device, grids)
+        # busca_tpu/models/yolox.py:378: the grid cast to reg.dtype, so a
+        # bf16 head decodes (reg + grid) * stride in bf16
+        grid = _grid(h, w, reg.device, grids, reg.dtype)
         xy = (out[..., :2] + grid) * stride
         wh = torch.exp(out[..., 2:4]) * stride
         rows.append(torch.cat([xy, wh, torch.sigmoid(out[..., 4:])], -1))

@@ -6,7 +6,8 @@ together with the bilinear upsampling of the level maps in front of it.  It
 computes :func:`busca_tpu_torch.ops.lma.local_tap_sum_levels` (level maps at
 their own resolutions) and :func:`busca_tpu_torch.ops.lma.local_tap_sum`
 (levels stacked at the query size) for CUDA tensors: both launch the same
-kernel.  The source is built and loaded by
+kernel, instantiated for float32 and for bfloat16 inputs (one C entry point
+each).  The source is built and loaded by
 :mod:`busca_tpu_torch.ops.cuda_build` at first use, so importing this
 module needs neither CUDA nor a compiler.
 """
@@ -19,18 +20,25 @@ from typing import Sequence
 import torch
 
 from busca_tpu_torch.ops.cuda_build import CudaLibrary
+from busca_tpu_torch.ops.lma import check_dtypes
 
 MAX_LEVELS = 8  # kMaxLevels in the source
 
 
+# the C entry point of each element type
+ENTRY = {torch.float32: "local_tap_sum_launch",
+         torch.bfloat16: "local_tap_sum_bf16_launch"}
+
+
 def _declare(lib):
-    fn = lib.local_tap_sum_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    for name in ENTRY.values():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ]
 
 
 LIBRARY = CudaLibrary("local_tap_sum.cu", _declare)
@@ -38,15 +46,16 @@ LIBRARY = CudaLibrary("local_tap_sum.cu", _declare)
 
 def launch(levels: Sequence[torch.Tensor], weights: torch.Tensor,
            dils: Sequence[int], heads: int, out: torch.Tensor):
-    """Launch K2 into ``out`` ``[H4, W4, C]`` float32 (inputs validated by
-    :func:`local_tap_sum_levels_cuda`)."""
+    """Launch K2 into ``out`` ``[H4, W4, C]`` of the inputs' dtype (inputs
+    validated by :func:`local_tap_sum_levels_cuda`)."""
     n = len(levels)
     ptrs = (ctypes.c_void_p * n)(*(v.data_ptr() for v in levels))
     hw = (ctypes.c_int * (2 * n))(*(int(s) for v in levels
                                     for s in v.shape[:2]))
     dil_arr = (ctypes.c_int * n)(*(int(d) for d in dils))
     h4, w4, c = out.shape
-    err = LIBRARY.load().local_tap_sum_launch(
+    entry = getattr(LIBRARY.load(), ENTRY[weights.dtype])
+    err = entry(
         ctypes.addressof(ptrs), ctypes.addressof(hw),
         ctypes.addressof(dil_arr), n, weights.data_ptr(), h4, w4, c, heads,
         out.data_ptr(), torch.cuda.current_stream(weights.device).cuda_stream,
@@ -61,20 +70,16 @@ def local_tap_sum_levels_cuda(levels: Sequence[torch.Tensor],
                               weights: torch.Tensor, dils: Sequence[int],
                               heads: int) -> torch.Tensor:
     """:func:`~busca_tpu_torch.ops.lma.local_tap_sum_levels` on the card
-    through K2.  ``levels``: L CUDA maps ``[h_l, w_l, C]`` float32 with
-    ``h_l <= H4`` and ``w_l <= W4``, and ``C / heads`` a multiple of 8;
-    ``weights``: ``[H4, W4, heads, L * 9]`` float32.  Returns ``[H4, W4, C]``
-    float32."""
+    through K2.  ``levels``: L CUDA maps ``[h_l, w_l, C]`` with ``h_l <=
+    H4`` and ``w_l <= W4``, and ``C / heads`` a multiple of 8; ``weights``:
+    ``[H4, W4, heads, L * 9]``; all float32 or all bfloat16 (a mix raises).
+    Returns ``[H4, W4, C]`` in that dtype."""
     levels = list(levels)
+    check_dtypes(levels, weights)
     if not (weights.is_cuda and all(
             v.is_cuda and v.device == weights.device for v in levels)):
         raise ValueError("K2 needs the levels and the weights on one CUDA "
                          "device")
-    if weights.dtype != torch.float32 or any(
-            v.dtype != torch.float32 for v in levels):
-        raise ValueError(f"K2 takes float32, got "
-                         f"{sorted({str(v.dtype) for v in levels})} and "
-                         f"{weights.dtype}")
     if not 1 <= len(levels) <= MAX_LEVELS or len(dils) != len(levels):
         raise ValueError(f"need one dilation per level and 1..{MAX_LEVELS} "
                          f"levels, got {len(dils)} for {len(levels)}")
@@ -96,13 +101,16 @@ def local_tap_sum_levels_cuda(levels: Sequence[torch.Tensor],
                          f"{tuple(dils)}")
     if c % heads or (c // heads) % 8:
         raise ValueError(f"C={c} must split into {heads} heads of a multiple "
-                         "of 8 channels (a block's slice of two or four "
-                         "float4 groups lies in one head)")
+                         "of 8 channels (a block's slice of 16-byte "
+                         "groups lies in one head)")
     levels = [v.contiguous() for v in levels]
     weights = weights.contiguous()
-    if any(v.data_ptr() % 16 for v in levels) or weights.data_ptr() % 4:
-        raise ValueError("K2 reads the levels as float4: 16-byte alignment")
-    out = torch.empty((h4, w4, c), dtype=torch.float32, device=weights.device)
+    if any(v.data_ptr() % 16 for v in levels) or \
+            weights.data_ptr() % weights.element_size():
+        raise ValueError("K2 reads the levels in 16-byte groups: 16-byte "
+                         "alignment")
+    out = torch.empty((h4, w4, c), dtype=weights.dtype,
+                      device=weights.device)
     if out.numel():
         launch(levels, weights, dils, heads, out)
     return out
@@ -112,8 +120,8 @@ def local_tap_sum_cuda(values: torch.Tensor, weights: torch.Tensor,
                        dils: Sequence[int], heads: int) -> torch.Tensor:
     """:func:`~busca_tpu_torch.ops.lma.local_tap_sum` on the card through
     K2: every level is already at the query size.  ``values``: CUDA
-    ``[L, H4, W4, C]`` float32; ``weights``: ``[H4, W4, heads, L * 9]``
-    float32.  Returns ``[H4, W4, C]`` float32."""
+    ``[L, H4, W4, C]``; ``weights``: ``[H4, W4, heads, L * 9]``; both
+    float32 or both bfloat16.  Returns ``[H4, W4, C]`` in that dtype."""
     if values.dim() != 4:
         raise ValueError(f"values must be [L, H4, W4, C], got "
                          f"{tuple(values.shape)}")

@@ -14,3 +14,14 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def set_card_precision():
+    """The entry points' numerics on the card: float32 products in full
+    float32 (TF32 off, for matrix products and cuDNN convolutions alike),
+    and bf16 products reduced in float32, as XLA accumulates them
+    (``allow_bf16_reduced_precision_reduction`` off).  Process-wide flags:
+    ``chip_smoke.py`` and the CLI set them, no module does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

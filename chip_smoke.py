@@ -15,37 +15,46 @@ Phases (each failure exits non-zero before the result line):
    path at 2160x3840 (values 200-255, boxes across each edge, one covering
    the frame, whose region total passes 2**32); max |diff|, exact share,
    times of the op, the kernel alone and the plain version, and the bound;
-3. K2 against its plain torch version: over the level maps at their own
-   resolutions (the decoder's call) at the MOT17 pyramid (query 160x272;
-   levels 160x272, 80x136, 40x68, 20x34; C=256, 8 heads; softmaxed
-   weights) and at a ragged pyramid, and over levels stacked at the query
-   size at the MOT17 shape (exact); max |diff|, exact share, times (also of
-   the upsample + stack + K2 chain the decoder ran before) and bound;
+3. K2 against its plain torch version, in float32 and in bfloat16 (bf16
+   level maps and weights, a float32 accumulator, a bf16 output): over the
+   level maps at their own resolutions (the decoder's call) at the MOT17
+   pyramid (query 160x272; levels 160x272, 80x136, 40x68, 20x34; C=256, 8
+   heads; softmaxed weights) and at a ragged pyramid, and over levels
+   stacked at the query size at the MOT17 shape (all exact); max |diff|,
+   exact share, times (also of the upsample + stack + K2 chain the decoder
+   ran before) and bound;
 4. an association drive at 1080p: 16 tracks with full 11-crop memories and
    30 detections, all cropped through K1, scored by the full-width model
-   (ResNet-50, d=512, 4 layers) with random seeded weights in float32, TF32
-   off; the probability rows must be finite and sum to 1, and a small
-   request must agree with the same model on the CPU;
-5. the ByteTrack main path: ``run_synthetic`` base vs BUSCA on the dropout
-   sequence rendered at 1080x1920, with K1's launch count read around it;
+   (ResNet-50, d=512, 4 layers) with random seeded weights, in float32
+   (TF32 off) and in bf16 (the CLI's default, bf16 products reduced in
+   float32); the probability rows must be finite and sum to 1, a small
+   request in float32 must agree with the same model on the CPU, and the
+   bf16 probabilities must keep the float32 argmax where its margin is
+   above 0.05 and lie within 0.12 of them (tests/test_bf16.py's bars);
+5. the ByteTrack main path with BUSCA in bf16: ``run_synthetic`` base vs
+   BUSCA on the dropout sequence rendered at 1080x1920, with K1's launch
+   count read around it;
 6. the TransCenter loop: the full-width detector (PVTv2-b2, 6 decoder
    layers, 640x1088, random seeded weights with a calibrated head) against
    the same model on the CPU at 128x224 on all five maps, then
    ``track_frames_with_detector`` with TransCenterByteTracker + BUSCA over
    the dropout sequence at 1080x1920, with K1's and K2's launch counts read
    around it (K2: exactly 12 per frame), the detector step's time, peak
-   memory and profile by kernel kind;
+   memory and profile by kernel kind; then the same in bf16 (the detector's
+   bf16 config and BUSCA in bf16), its maps held against the float32
+   model's on the card, K2's bf16 launches counted;
 7. the YOLOX-X loop, the canonical ByteTrack + BUSCA path: the full-width
    detector (depth 1.33, width 1.25, one class, 800x1440) with seeded random
    weights calibrated on the sequence (BN statistics, head biases), against
    the same model on the CPU at 128x224 on the raw head outputs and the
    decoded rows; then ``track_frames_with_detector`` with ByteTracker +
-   BUSCA over the dropout sequence at 1080x1920, pipelined
+   BUSCA in bf16 over the dropout sequence at 1080x1920, pipelined
    (``put_frame``/``detect_async``) and serial, which must agree frame by
    frame, with K1's launches read around the pipelined run; the step's time,
    peak memory, profile by kernel kind and float32 operation count; a check
    that ``detect_async`` enqueues without a host sync and returns before its
-   step ends;
+   step ends; then the bf16 YOLOX-X step (the detector's bf16 config): its
+   time and profile, and its decoded rows held against the float32 step's;
 8. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -63,8 +72,12 @@ CROP_HW = (384, 128)
 N_BOXES = 64
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 K1_TOL = 0.0  # K1 equals its plain version bit for bit
 PROB_TOL = 1e-3  # card vs CPU probabilities, float32 with TF32 off
+# bf16 BUSCA against float32 (tests/test_bf16.py's bars): the argmax kept
+# where the float32 margin is above BF16_MARGIN, |delta p| <= BF16_PROB_BAR
+BF16_MARGIN, BF16_PROB_BAR = 0.05, 0.12
 LETTERBOX_HW = (612, 1088)  # 1080x1920 into the 640x1088 test size
 YX_LETTERBOX_HW = (800, 1422)  # 1080x1920 into YOLOX's 800x1440
 PAD_FRAME_HW = (2160, 3840)  # K1's pad path: a 4K frame of values 200-255
@@ -79,6 +92,8 @@ K2_TOL = 1e-5
 TC_TEST_SIZE = (640, 1088)
 TC_CPU_SIZE = (128, 224)  # every PVT stage divides: no SAME padding
 TC_MAP_TOL = 1e-3  # card vs CPU maps, float32 with TF32 off
+# bf16 vs float32 maps on the card, max |diff| over the map's scale
+TC_BF16_TOL = 0.1
 TC_FRAMES = 20
 # The random detector's scores all sit near sigmoid(-4.6) ~ 0.01, below
 # BYTE's fixed 0.1 score floor, and its boxes are a few pixels wide.  The
@@ -94,6 +109,10 @@ TC_OUT_THRESH, TC_TRACK_THRESH = 0.6, 0.5
 YX_TEST_SIZE = (800, 1440)
 YX_CPU_SIZE = (128, 224)
 YX_TOL = 1e-3  # card vs CPU, relative and absolute, float32 with TF32 off
+# bf16 vs float32 decoded rows on the card, max |diff| / (1 + |want|), on
+# the weights with the backbone's BN variances times YX_BF16_DAMP (the CPU
+# at 128x224: 0.017; undamped, the random net's rows differ by O(1))
+YX_BF16_DAMP, YX_BF16_TOL = 2.0, 0.05
 YX_FRAMES = 20
 # The random YOLOX-X is calibrated on the sequence's frames
 # (YoloxDetector.calibrate_random_weights): BN statistics measured on them,
@@ -408,17 +427,17 @@ def phase_k1_pad_path(device):
     return result
 
 
-def k2_bound_ms(level_hw, c, heads, dils):
+def k2_bound_ms(level_hw, c, heads, dils, elem_bytes=4):
     """Least time for the tap sum over level maps: bytes (each level read
-    once at its own resolution, the weights once, the float32 output written
-    once) over the memory rate, or float32 operations over the float32 rate,
-    whichever is larger.  Operations, per channel, as the plain version
-    computes them: an upsampled level interpolated once, x-lerps at h_l x W4
-    and y-lerps at H4 x W4 of 3 operations each, then a multiply and an add
-    for every tap inside the grid."""
+    once at its own resolution, the weights once, the output written once,
+    ``elem_bytes`` each) over the memory rate, or float32 operations over
+    the float32 rate, whichever is larger.  Operations, per channel, as the
+    plain version computes them: an upsampled level interpolated once,
+    x-lerps at h_l x W4 and y-lerps at H4 x W4 of 3 operations each, then a
+    multiply and an add for every tap inside the grid."""
     (h4, w4), levels = level_hw[0], len(level_hw)
-    nbytes = 4 * (sum(h * w * c for h, w in level_hw)
-                  + h4 * w4 * heads * levels * 9 + h4 * w4 * c)
+    nbytes = elem_bytes * (sum(h * w * c for h, w in level_hw)
+                           + h4 * w4 * heads * levels * 9 + h4 * w4 * c)
     ops = 0
     for (h, w), d in zip(level_hw, dils):
         inside = (sum(max(h4 - abs(k) * d, 0) for k in (-1, 0, 1))
@@ -432,21 +451,25 @@ def k2_bound_ms(level_hw, c, heads, dils):
                                  else "operations"), nbytes, ops
 
 
-def k2_pyramid(device, level_hw, c, heads, seed=5):
-    """Seeded level maps at their own resolutions and softmaxed weights."""
+def k2_pyramid(device, level_hw, c, heads, seed=5, dtype="float32"):
+    """Seeded level maps at their own resolutions and softmaxed weights, in
+    ``dtype`` (bf16: the float32 draws rounded)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     h4, w4 = level_hw[0]
-    levels = [torch.randn((h, w, c), generator=g).to(device)
+    dt = getattr(torch, dtype)
+    levels = [torch.randn((h, w, c), generator=g).to(device, dt)
               for h, w in level_hw]
     wts = torch.randn((h4, w4, heads, len(level_hw) * 9),
-                      generator=g).softmax(-1).to(device)
+                      generator=g).softmax(-1).to(device, dt)
     dils = tuple(max(h4 // h, 1) for h, _ in level_hw)
     return levels, wts, dils
 
 
-def phase_k2(device):
+def phase_k2_dtype(device, dtype):
+    """K2 in ``dtype`` against its plain version at both pyramids and on
+    stacked levels; times and bound at the MOT17 pyramid."""
     import torch
     import torch.nn.functional as F
 
@@ -462,16 +485,19 @@ def phase_k2(device):
 
     result = None
     for name, (level_hw, c, heads) in K2_PYRAMIDS.items():
-        levels, wts, dils = k2_pyramid(device, level_hw, c, heads)
+        levels, wts, dils = k2_pyramid(device, level_hw, c, heads,
+                                       dtype=dtype)
         h4, w4 = level_hw[0]
-        out = torch.empty((h4, w4, c), device=device)
+        out = torch.empty((h4, w4, c), device=device, dtype=wts.dtype)
+        # bf16 is exact too: the plain version rounds where the kernel does
         held = hold_against_plain(
-            f"K2 over the levels at {name} ({level_hw}, C={c}, {heads} "
-            f"heads, dils {dils})",
+            f"K2 {dtype} over the levels at {name} ({level_hw}, C={c}, "
+            f"{heads} heads, dils {dils})",
             lambda: local_tap_sum_levels(levels, wts, dils, heads),
             lambda: local_tap_sum_levels_plain(levels, wts, dils),
             lambda: lma_cuda.launch(levels, wts, dils, heads, out),
-            local_tap_sum_cuda, K2_TOL, out.shape, timed=name == "mot17")
+            local_tap_sum_cuda, K2_TOL if dtype == "float32" else 0.0,
+            out.shape, timed=name == "mot17")
         if name != "mot17":
             continue
         # the decoder's chain before: upsample with F.interpolate, stack,
@@ -485,11 +511,12 @@ def phase_k2(device):
         launches0 = local_tap_sum_cuda.launches
         chain_ms = cuda_time_ms(chain)
         local_tap_sum_cuda.launches = launches0
-        bms, bound_by, nbytes, ops = k2_bound_ms(level_hw, c, heads, dils)
-        print(f"K2 over the levels at {name}: op {held['ms']:.4f} ms (kernel "
-              f"alone {held['kernel_ms']:.4f} ms; on the device alone "
-              f"{held['device_ms']:.4f} / {held['kernel_device_ms']:.4f} "
-              f"ms), plain "
+        bms, bound_by, nbytes, ops = k2_bound_ms(level_hw, c, heads, dils,
+                                                 wts.element_size())
+        print(f"K2 {dtype} over the levels at {name}: op {held['ms']:.4f} ms "
+              f"(kernel alone {held['kernel_ms']:.4f} ms; on the device "
+              f"alone {held['device_ms']:.4f} / "
+              f"{held['kernel_device_ms']:.4f} ms), plain "
               f"{held['plain_ms']:.4f} ms, the chain it replaces (interpolate"
               f" + stack + K2) {chain_ms:.4f} ms, bound {bms:.4f} ms by "
               f"{bound_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
@@ -500,28 +527,35 @@ def phase_k2(device):
         vals = torch.stack([upsample_bilinear_plain(v, (h4, w4))
                             for v in levels])
         stacked = hold_against_plain(
-            f"K2 over stacked levels at {name} ({tuple(vals.shape)})",
+            f"K2 {dtype} over stacked levels at {name} "
+            f"({tuple(vals.shape)})",
             lambda: local_tap_sum(vals, wts, dils, heads),
             lambda: local_tap_sum_plain(vals, wts, dils),
             lambda: lma_cuda.launch(list(vals.unbind(0)), wts, dils, heads,
                                     out),
             local_tap_sum_cuda, 0.0, out.shape)
-        print(f"K2 over stacked levels at {name}: op {stacked['ms']:.4f} ms "
-              f"(kernel alone {stacked['kernel_ms']:.4f} ms), plain "
+        print(f"K2 {dtype} over stacked levels at {name}: op "
+              f"{stacked['ms']:.4f} ms (kernel alone "
+              f"{stacked['kernel_ms']:.4f} ms), plain "
               f"{stacked['plain_ms']:.4f} ms")
-        result = {
-            "name": "local_tap_sum (K2)",
-            "route": "cuda",
-            "source": "busca_tpu_torch/csrc/local_tap_sum.cu",
-            "replaces": "busca_tpu/ops/lma_pallas.py:60",
-            **held,
-            "bound_ms": bms,
-            "bound_by": bound_by,
-            "library_ms": None,
-            "chain_ms": chain_ms,
-            "stacked": stacked,
-        }
+        result = {**held, "bound_ms": bms, "bound_by": bound_by,
+                  "library_ms": None, "chain_ms": chain_ms,
+                  "stacked": stacked}
     return result
+
+
+def phase_k2(device):
+    """K2's ``kernels`` entry: the float32 case, with the bf16 case (the
+    same kernel instantiated for bf16 inputs) under ``bf16``."""
+    k2 = {
+        "name": "local_tap_sum (K2)",
+        "route": "cuda",
+        "source": "busca_tpu_torch/csrc/local_tap_sum.cu",
+        "replaces": "busca_tpu/ops/lma_pallas.py:60",
+        **phase_k2_dtype(device, "float32"),
+    }
+    k2["bf16"] = phase_k2_dtype(device, "bfloat16")
+    return k2
 
 
 def make_track(Track, crops, tlwhs, score=0.9):
@@ -535,31 +569,24 @@ def make_track(Track, crops, tlwhs, score=0.9):
     return t
 
 
-def phase_association(device):
+def association_request(engine, rng, frame, n_tracks, n_dets):
+    """16-track, 30-detection request at 1080p, its crops through K1 into
+    ``engine``'s bank: (tracks, detections, Kalman candidates)."""
     import numpy as np
-    import torch
 
-    from busca_tpu_torch.eval.run import build_engine
     from busca_tpu_torch.trackers.base import (
         KALMAN_CANDIDATE_CONF,
         Track,
         extract_uint8_crops,
     )
 
-    rng = np.random.RandomState(2)
-    h, w = FRAME_HW
-    frame = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
-    t0 = time.perf_counter()
-    engine, _ = build_engine(device=device, crop_hw=CROP_HW, seed=0)
-    print(f"engine build (ResNet-50, d=512, 4 layers): "
-          f"{time.perf_counter() - t0:.2f} s")
-
-    n_tracks, n_dets, seq_len = 16, 30, engine.seq_len
+    h, w = frame.shape[:2]
+    device = engine.device
     tracks = []
     for _ in range(n_tracks):
         x, y = rng.uniform(0, w - 200), rng.uniform(0, h - 400)
         tlwhs = [np.array([x + 3 * k, y + k, 80.0, 200.0])
-                 for k in range(seq_len)]
+                 for k in range(engine.seq_len)]
         crops = extract_uint8_crops(
             frame, [b[:2].tolist() + (b[:2] + b[2:]).tolist() for b in tlwhs],
             CROP_HW, bank=engine.bank, device=device)
@@ -577,6 +604,16 @@ def phase_association(device):
                                     CROP_HW, bank=engine.bank, device=device)
     kals = [Track(t.tlwh, np.float32(KALMAN_CANDIDATE_CONF), c)
             for t, c in zip(tracks, kal_crops)]
+    return tracks, dets, kals
+
+
+def time_associate(engine, request, label):
+    """ms per ``associate`` (median of 5 after one warm call) and the
+    request's probability matrix (``_score_prepped``: every row)."""
+    import numpy as np
+    import torch
+
+    tracks, dets, kals = request
 
     def run():
         return engine.associate(tracks, dets, extra_kalman_candidates=kals)
@@ -589,26 +626,76 @@ def phase_association(device):
         probs_matrix, reliable = run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    n_tracks, n_dets = len(tracks), len(dets)
     check(probs_matrix.shape == (n_tracks, n_dets + n_tracks),
-          f"probs matrix shape {probs_matrix.shape}")
+          f"{label} probs matrix shape {probs_matrix.shape}")
     check(bool(reliable.all()), "full memories must be reliable")
     req = engine._prep_request(tracks, dets, extra_kalman_candidates=kals)
     probs = engine._score_prepped(req, True)
     row_sums = probs.sum(-1)
-    check(np.isfinite(probs).all(), "non-finite probabilities")
+    check(np.isfinite(probs).all(), f"{label}: non-finite probabilities")
     check(np.allclose(row_sums, 1.0, atol=1e-5),
-          f"probability rows do not sum to 1: {row_sums}")
-    print(f"association T={n_tracks} D={n_dets} (+{n_tracks} Kalman) at "
-          f"{h}x{w}: {np.median(times):.2f} ms median of {len(times)} "
+          f"{label}: probability rows do not sum to 1: {row_sums}")
+    print(f"association {label} T={n_tracks} D={n_dets} (+{n_tracks} "
+          f"Kalman) at {FRAME_HW[0]}x{FRAME_HW[1]}: {np.median(times):.2f} "
+          f"ms median of {len(times)} "
           f"({', '.join(f'{t:.2f}' for t in times)}); rows finite, "
           f"max |sum-1| {np.abs(row_sums - 1).max():.2e}")
+    return probs
 
-    # the same model on the CPU, on a small request (2 tracks, 5 dets)
+
+def phase_association(device):
+    """Returns the float32 engine and the bf16 one (the CLI's default),
+    both from ``build_engine`` with seed 0: the same weights."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.assoc.engine import AssociationEngine
+    from busca_tpu_torch.eval.run import build_engine
+
+    rng = np.random.RandomState(2)
+    h, w = FRAME_HW
+    frame = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+    engines = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        engines[dtype], _ = build_engine(device=device, crop_hw=CROP_HW,
+                                         seed=0, dtype=dtype)
+        print(f"engine build (ResNet-50, d=512, 4 layers, {dtype}): "
+              f"{time.perf_counter() - t0:.2f} s")
+    engine, engine16 = engines["float32"], engines["bfloat16"]
+    check(all(torch.equal(a, b) for a, b in zip(
+        engine.model.state_dict().values(),
+        engine16.model.state_dict().values())),
+        "the float32 and bf16 engines' weights differ")
+    n_tracks, n_dets, seq_len = 16, 30, engine.seq_len
+    # one request per engine (each keeps its crops in its own bank), the
+    # same boxes: the generator is reseeded
+    probs = {}
+    requests = {}
+    for dtype, eng in engines.items():
+        requests[dtype] = association_request(
+            eng, np.random.RandomState(3), frame, n_tracks, n_dets)
+        probs[dtype] = time_associate(eng, requests[dtype], dtype)
+
+    # bf16 against float32 on the card: tests/test_bf16.py's bars
+    p32, p16 = probs["float32"], probs["bfloat16"]
+    srt = np.sort(p32, -1)
+    confident = srt[:, -1] - srt[:, -2] > BF16_MARGIN
+    same = (p16.argmax(-1) == p32.argmax(-1))[confident]
+    dp = float(np.abs(p16 - p32).max())
+    print(f"association bf16 vs float32 on the card: argmax equal on "
+          f"{int(same.sum())} of {int(confident.sum())} rows whose float32 "
+          f"margin > {BF16_MARGIN} ({len(p32)} rows); max |dp| {dp:.4g} "
+          f"(bar {BF16_PROB_BAR})")
+    check(bool(same.all()), "bf16 BUSCA changed a confident argmax")
+    check(dp <= BF16_PROB_BAR, f"bf16 BUSCA |dp| {dp} > {BF16_PROB_BAR}")
+
+    # the float32 model on the CPU, on a small request (2 tracks, 5 dets)
+    tracks, dets, kals = requests["float32"]
     cpu_model = type(engine.model)(engine.config)
     cpu_model.load_state_dict(
         {k: v.cpu() for k, v in engine.model.state_dict().items()})
-    from busca_tpu_torch.assoc.engine import AssociationEngine
-
     cpu_engine = AssociationEngine(engine.config, cpu_model.eval(),
                                    seq_len=seq_len, crop_hw=CROP_HW)
     small = (tracks[:2], dets[:5])
@@ -620,7 +707,7 @@ def phase_association(device):
     print(f"card vs CPU probabilities (T=2, D=5): max|diff| {err:.3g} "
           f"(tol {PROB_TOL})")
     check(err <= PROB_TOL, f"card and CPU disagree: {err}")
-    return engine
+    return engine, engine16
 
 
 def phase_main_path(device, engine):
@@ -662,7 +749,8 @@ def phase_main_path(device, engine):
     engine.associate = assoc
     for tag in ("base", "busca"):
         m = out[tag]
-        print(f"main path {tag}: MOTA {m['mota']:.4f} IDF1 {m['idf1']:.4f} "
+        print(f"main path {tag} (BUSCA {engine.config.dtype}): MOTA "
+              f"{m['mota']:.4f} IDF1 {m['idf1']:.4f} "
               f"HOTA {m['hota']:.4f} IDs {m['ids']} FP {m['fp']} "
               f"FN {m['fn']} {1e3 / m['fps']:.2f} ms/frame "
               f"({seq.height}x{seq.width}, {seq.num_frames} frames)")
@@ -740,46 +828,20 @@ def profile_step(step, step_ms, reps=3, label="detector step"):
           f"({100 * up / busy:.1f}% of the device time)")
 
 
-def phase_transcenter(device, engine, k2_ms):
-    import numpy as np
+def check_against_cpu(det, device):
+    """The float32 detector's five maps against the same model on the CPU
+    at TC_CPU_SIZE."""
     import torch
 
-    from busca_tpu_torch.eval.detector import (
-        TransCenterDetector,
-        track_frames_with_detector,
-    )
-    from busca_tpu_torch.eval.run import make_tracker
-    from busca_tpu_torch.eval.synthetic import (
-        SyntheticSequence,
-        default_dropout_sequence,
-    )
-    from busca_tpu_torch.models.transcenter import (
-        TransCenterConfig,
-        TransCenterDETR,
-    )
-    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
-    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
-    from busca_tpu_torch.trackers.base import Track
+    from busca_tpu_torch.models.transcenter import TransCenterDETR
 
-    cfg = TransCenterConfig.for_dataset("mot17")
-    t0 = time.perf_counter()
-    det = TransCenterDetector(cfg, test_size=TC_TEST_SIZE,
-                              out_thresh=TC_OUT_THRESH, device=device, seed=0)
-    calibrate_heads(det.model)
-    n_params = sum(p.numel() for p in det.model.parameters())
-    print(f"TransCenter build (PVTv2-b2, hidden {cfg.hidden_dim}, "
-          f"{cfg.num_decoder_layers} decoder layers, {cfg.dec_heads} heads, "
-          f"K={cfg.K}, {n_params} parameters): "
-          f"{time.perf_counter() - t0:.2f} s")
-
-    # the same model on the CPU at a reduced test size
-    cpu_model = TransCenterDETR(cfg)
+    cpu_model = TransCenterDETR(det.config)
     cpu_model.load_state_dict(
         {k: v.cpu() for k, v in det.model.state_dict().items()})
     cpu_model.eval()
     g = torch.Generator().manual_seed(6)
     h, w = TC_CPU_SIZE
-    down = cfg.down_ratio
+    down = det.config.down_ratio
     args = (torch.randn((1, h, w, 3), generator=g),
             torch.randn((1, h, w, 3), generator=g),
             torch.rand((1, h // down, w // down, 1), generator=g))
@@ -796,11 +858,81 @@ def phase_transcenter(device, engine, k2_ms):
               f"(tol {TC_MAP_TOL})")
         check(err <= TC_MAP_TOL, f"card and CPU disagree on {k}: {err}")
 
+
+def check_against_float32(det, ref, frame):
+    """The bf16 detector's five maps against the float32 detector's (the
+    same weights) on the card, at the test size on ``frame``'s canvas as its
+    own previous frame: max |diff| over the float32 map's largest
+    magnitude."""
+    import torch
+
+    from busca_tpu_torch.eval.detector import normalize_canvas
+
+    canvas, _ = det.prep(torch.as_tensor(frame).to(det.device))
+    x = normalize_canvas(canvas, det._mean, det._std)[None]
+    down = det.config.down_ratio
+    pre_hm = torch.zeros((1, TC_TEST_SIZE[0] // down,
+                          TC_TEST_SIZE[1] // down, 1), device=det.device)
+    with torch.no_grad():
+        got = det.model(x, x, pre_hm)
+        want = ref.model(x, x, pre_hm)
+    for k in want:
+        check(got[k].dtype == torch.bfloat16,
+              f"bf16 map {k} is {got[k].dtype}")
+        check(bool(torch.isfinite(got[k]).all()), f"bf16 map {k} non-finite")
+        g, w = got[k].float(), want[k]
+        share = float((g - w).abs().max() / w.abs().max())
+        mean = float((g - w).abs().mean() / w.abs().mean())
+        print(f"TransCenter bf16 vs float32 on the card at {TC_TEST_SIZE}, "
+              f"map {k} {tuple(g.shape)}: max|diff| {share:.4g} of the "
+              f"map's scale, mean |diff| {mean:.4g} of its mean |value| "
+              f"(tol {TC_BF16_TOL})")
+        check(share <= TC_BF16_TOL, f"bf16 map {k} off by {share} of scale")
+
+
+def phase_transcenter(device, engine, k2_ms, dtype="float32", ref=None):
+    """The TransCenter loop with the detector's config in ``dtype`` and
+    BUSCA in ``engine``'s.  float32 is held against the same model on the
+    CPU, bf16 against ``ref`` (the float32 detector) on the card.  Returns
+    K1's and K2's launches over the loop, and the detector."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import (
+        TransCenterDetector,
+        track_frames_with_detector,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.models.transcenter import TransCenterConfig
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    cfg = TransCenterConfig.for_dataset("mot17", dtype=dtype)
+    t0 = time.perf_counter()
+    det = TransCenterDetector(cfg, test_size=TC_TEST_SIZE,
+                              out_thresh=TC_OUT_THRESH, device=device, seed=0)
+    calibrate_heads(det.model)
+    n_params = sum(p.numel() for p in det.model.parameters())
+    print(f"TransCenter {dtype} build (PVTv2-b2, hidden {cfg.hidden_dim}, "
+          f"{cfg.num_decoder_layers} decoder layers, {cfg.dec_heads} heads, "
+          f"K={cfg.K}, {n_params} parameters): "
+          f"{time.perf_counter() - t0:.2f} s")
+    down = cfg.down_ratio
     base = default_dropout_sequence(40)
     seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
                             height=FRAME_HW[0], width=FRAME_HW[1],
                             seed=base.seed)
     frames = [seq.frame(t) for t in range(TC_FRAMES)]
+    if ref is None:
+        check_against_cpu(det, device)
+    else:
+        check_against_float32(det, ref, frames[0])
+
     # warm-up frame (cuDNN algorithm choice, allocator), then the steady
     # step time with CUDA events on a fixed canvas
     det.reset()
@@ -808,7 +940,8 @@ def phase_transcenter(device, engine, k2_ms):
     probe = det.detect(frames[0])
     det.out_thresh = TC_OUT_THRESH
     top = np.sort(probe.scores)[::-1]
-    print(f"first frame: {len(top)} detections after NMS; every 5th of the "
+    print(f"TransCenter {dtype} first frame: {len(top)} detections after "
+          f"NMS; every 5th of the "
           f"top 100 scores {np.round(top[:100:5], 3).tolist()}; above "
           + ", ".join(f"{th}: {int((top > th).sum())}"
                       for th in (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9)))
@@ -818,17 +951,17 @@ def phase_transcenter(device, engine, k2_ms):
                           1), device=device)
     step_ms = cuda_time_ms(lambda: det.step(canvas, canvas, pre_hm), reps=5,
                            warmup=1)
-    print(f"detector step (forward, decode, NMS) at {TC_TEST_SIZE}: "
-          f"{step_ms:.2f} ms")
+    print(f"TransCenter {dtype} detector step (forward, decode, NMS) at "
+          f"{TC_TEST_SIZE}: {step_ms:.2f} ms")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     det.step(canvas, canvas, pre_hm)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    print(f"detector step peak memory: {peak / 1e6:.1f} MB allocated, "
-          f"{(peak - held) / 1e6:.1f} MB above the {held / 1e6:.1f} MB held "
-          "before the step")
+    print(f"TransCenter {dtype} step peak memory: {peak / 1e6:.1f} MB "
+          f"allocated, {(peak - held) / 1e6:.1f} MB above the "
+          f"{held / 1e6:.1f} MB held before the step")
 
     # CMC off: the card host has no cv2
     tracker = make_tracker(
@@ -858,12 +991,12 @@ def phase_transcenter(device, engine, k2_ms):
     n_tracks = [len(r[2]) for r in res.results]
     det_ms = res.stage_times["detector_s"] * 1e3 / res.num_frames
     trk_ms = res.stage_times["tracker_s"] * 1e3 / res.num_frames
-    print(f"TransCenter loop ({FRAME_HW[0]}x{FRAME_HW[1]}, {res.num_frames} "
-          f"frames, out_thresh {TC_OUT_THRESH}, track_thresh "
+    print(f"TransCenter {dtype} loop ({FRAME_HW[0]}x{FRAME_HW[1]}, "
+          f"{res.num_frames} frames, out_thresh {TC_OUT_THRESH}, track_thresh "
           f"{TC_TRACK_THRESH}): detections per frame {n_dets} (mean "
           f"{np.mean(n_dets):.1f}); output tracks per frame {n_tracks}")
-    print(f"TransCenter loop: detector {det_ms:.2f} ms/frame, tracker "
-          f"{trk_ms:.2f} ms/frame, total {1e3 / res.fps:.2f} ms/frame; "
+    print(f"TransCenter {dtype} loop: detector {det_ms:.2f} ms/frame, "
+          f"tracker {trk_ms:.2f} ms/frame, total {1e3 / res.fps:.2f} ms/frame; "
           f"{third_rounds[0]} third rounds; K1 launches {k1_launches}, K2 "
           f"launches {k2_launches} (12 per frame: "
           f"{12 * res.num_frames}); K2 at {k2_ms:.4f} ms per launch is "
@@ -871,13 +1004,14 @@ def phase_transcenter(device, engine, k2_ms):
     for _, boxes, scores in log:
         check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
               "non-finite detections")
-    profile_step(lambda: det.step(canvas, canvas, pre_hm), step_ms)
+    profile_step(lambda: det.step(canvas, canvas, pre_hm), step_ms,
+                 label=f"TransCenter {dtype} step")
     check(k2_launches == 12 * res.num_frames,
           f"K2 launched {k2_launches} times, not 12 per frame")
     check(k1_launches > 0, "the TransCenter loop never launched K1")
     check(third_rounds[0] >= 1, "no third round ran in the TransCenter loop")
     check(sum(n_tracks) > 0, "the TransCenter loop output no track")
-    return k1_launches, k2_launches
+    return k1_launches, k2_launches, det
 
 
 def calibrate_yolox(det, frames):
@@ -1110,7 +1244,79 @@ def phase_yolox(device, engine):
           f"{(peak - held) / 1e6:.1f} MB above the {held / 1e6:.1f} MB held "
           "before the step")
     profile_step(lambda: det.step(canvas), step_ms, label="YOLOX-X step")
+    yolox_bf16_step(det, frames[0], canvas, xin, flops)
     return runs["pipelined"][2]
+
+
+def yolox_rows_gap(cfg, state, xin):
+    """The bf16 and float32 forwards of one YOLOX-X state on ``xin``:
+    max |diff| / (1 + |want|) over the box and the score columns, and the
+    bf16 rows."""
+    import dataclasses
+
+    import torch
+
+    from busca_tpu_torch.models.yolox import YOLOX
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        model = YOLOX(dataclasses.replace(cfg, dtype=dtype)).to(xin.device)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            rows[dtype] = model.eval()(xin)[0]
+        del model
+    got, want = rows["bfloat16"], rows["float32"]
+    check(got.dtype == torch.bfloat16, f"bf16 rows are {got.dtype}")
+    check(bool(torch.isfinite(got).all()), "bf16 YOLOX rows non-finite")
+    err = (got.float() - want).abs() / (1.0 + want.abs())
+    return float(err[:, :4].max()), float(err[:, 4:].max()), got
+
+
+def yolox_bf16_step(det, frame, canvas, xin, flops):
+    """The bf16 YOLOX-X step (the detector's config in bf16, the same
+    weights) on ``frame``'s ``canvas``: its decoded rows against the float32
+    step's, its time, rate and profile, and ``frame`` detected through it.
+
+    The calibrated random YOLOX-X is chaotic: its bf16 and float32 forwards
+    disagree by O(1) (printed for the record).  The rows are held on the
+    same weights with every backbone BatchNorm's variance times
+    YX_BF16_DAMP, which takes each layer's gain below 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import YoloxDetector
+
+    state = det.model.state_dict()
+    boxes, scores, _ = yolox_rows_gap(det.config, state, xin)
+    print(f"YOLOX-X bf16 vs float32 decoded rows at {YX_TEST_SIZE}, the "
+          f"calibrated weights: max |diff| / (1 + |want|) boxes {boxes:.4g}, "
+          f"scores {scores:.4g} (not held: the random net is chaotic)")
+    damped = {k: v * YX_BF16_DAMP if k.endswith("running_var")
+              and not k.startswith("head.") else v for k, v in state.items()}
+    boxes, scores, rows = yolox_rows_gap(det.config, damped, xin)
+    print(f"YOLOX-X bf16 vs float32 decoded rows at {YX_TEST_SIZE} "
+          f"({tuple(rows.shape)}), BN variances x{YX_BF16_DAMP}: max |diff| "
+          f"/ (1 + |want|) boxes {boxes:.4g}, scores {scores:.4g} (tol "
+          f"{YX_BF16_TOL})")
+    check(max(boxes, scores) <= YX_BF16_TOL,
+          f"bf16 YOLOX rows off by {max(boxes, scores)}")
+    cfg = dataclasses.replace(det.config, dtype="bfloat16")
+    det16 = YoloxDetector(cfg, state, test_size=YX_TEST_SIZE,
+                          conf_thresh=YX_CONF, device=det.device)
+    out = det16.detect(frame)
+    check(np.isfinite(out.boxes_tlbr).all() and np.isfinite(out.scores).all(),
+          "non-finite bf16 detections")
+    step_ms = cuda_time_ms(lambda: det16.step(canvas), reps=10, warmup=2)
+    rate = flops / (step_ms * 1e-3)
+    print(f"YOLOX-X bf16 step at {YX_TEST_SIZE}: {step_ms:.2f} ms; "
+          f"{flops / 1e12:.4f} TFLOP of convolution, {rate / 1e12:.2f} "
+          f"TFLOP/s, {100 * rate / BF16_FLOPS_PER_S:.1f}% of the 989 "
+          f"TFLOP/s bf16 peak (bound {flops / BF16_FLOPS_PER_S * 1e3:.2f} "
+          f"ms); {len(out.scores)} detections on the frame")
+    profile_step(lambda: det16.step(canvas), step_ms,
+                 label="YOLOX-X bf16 step")
 
 
 def main() -> int:
@@ -1130,8 +1336,9 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from busca_tpu_torch.utils.device import set_card_precision
+
+    set_card_precision()  # TF32 off; bf16 products reduced in float32
     device = "cuda"
     try:
         phase_card()
@@ -1142,20 +1349,26 @@ def main() -> int:
                                                    "YOLOX")
         k1["pad_path"] = phase_k1_pad_path(device)
         k2 = phase_k2(device)
-        engine = phase_association(device)
-        k1_byte = phase_main_path(device, engine)
-        k1_tc, k2["launches"] = phase_transcenter(device, engine,
-                                                  k2["kernel_ms"])
-        k1_yolox = phase_yolox(device, engine)
+        engine, engine16 = phase_association(device)
+        # BUSCA in bf16, the CLI's default, on the main paths
+        k1_byte = phase_main_path(device, engine16)
+        k1_tc, k2["launches"], tc32 = phase_transcenter(
+            device, engine, k2["kernel_ms"])
+        k1_tc16, k2["bf16"]["launches"], _ = phase_transcenter(
+            device, engine16, k2["bf16"]["kernel_ms"], "bfloat16", tc32)
+        del tc32
+        k1_yolox = phase_yolox(device, engine16)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: this slice's main path (the pipelined YOLOX loop); K1's
-    # count on each path is listed beside it; K2's is the TransCenter
-    # loop's, the only path that runs it
+    # launches: the canonical path (the pipelined YOLOX loop, BUSCA in
+    # bf16); K1's count on each path is listed beside it; K2's are the
+    # TransCenter loops', the only paths that run it: float32 at the top,
+    # bf16 under "bf16"
     k1["launches"] = k1_yolox
     k1["launches_by_path"] = {"byte_synthetic": k1_byte,
                               "transcenter_loop": k1_tc,
+                              "transcenter_bf16_loop": k1_tc16,
                               "yolox_loop": k1_yolox}
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {

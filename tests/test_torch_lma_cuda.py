@@ -9,7 +9,9 @@ times them.
 Tolerance: exact.  K2 is compiled with -fmad=false, interpolates with the
 plain version's separable lerps (x, then y) and adds the 36 terms in its
 order, so every element agrees bit for bit (the acceptance bar would allow
-1e-5).
+1e-5).  The same holds for its bfloat16 instantiation (bf16 values and
+weights, lerps rounded to bf16 after each axis, a float32 accumulator, a
+bf16 output), held against the plain version on the same bf16 inputs.
 """
 
 import numpy as np
@@ -165,3 +167,45 @@ def test_k2_validates_inputs(cuda):
                              wts, (1, 2), 2)
     np.testing.assert_array_equal(
         got.cpu().numpy(), local_tap_sum_plain(vals, wts, (1, 2)).cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_k2_bf16_matches_plain(cuda, shape):
+    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
+
+    levels, h4, w4, c, heads, dils = SHAPES[shape]
+    vals, wts = _inputs(cuda, levels, h4, w4, c, heads, seed=2)
+    vals, wts = vals.bfloat16(), wts.bfloat16()
+    before = local_tap_sum_cuda.launches
+    got = local_tap_sum(vals, wts, dils, heads)
+    want = local_tap_sum_plain(vals, wts, dils)
+    torch.cuda.synchronize()
+    assert local_tap_sum_cuda.launches == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == (h4, w4, c) and got.is_cuda
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(PYRAMIDS))
+def test_k2_bf16_levels_match_plain(cuda, name):
+    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
+
+    hws, c, heads = PYRAMIDS[name]
+    levels, wts, dils = _pyramid(cuda, hws, c, heads, seed=3)
+    levels = [v.bfloat16() for v in levels]
+    wts = wts.bfloat16()
+    before = local_tap_sum_cuda.launches
+    got = local_tap_sum_levels(levels, wts, dils, heads)
+    want = local_tap_sum_levels_plain(levels, wts, dils)
+    torch.cuda.synchronize()
+    assert local_tap_sum_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (*hws[0], c)
+    assert torch.equal(got, want)
+
+
+def test_k2_refuses_a_dtype_mix(cuda):
+    levels, wts, dils = _pyramid(cuda, PYRAMIDS["ragged"][0], 32, 4)
+    with pytest.raises(ValueError, match="all-float32 or all-bfloat16"):
+        local_tap_sum_levels(levels, wts.bfloat16(), dils, 4)
+    with pytest.raises(ValueError, match="all-float32 or all-bfloat16"):
+        local_tap_sum_levels([v.half() for v in levels], wts.half(), dils, 4)

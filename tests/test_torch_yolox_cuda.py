@@ -24,8 +24,9 @@ TOL = 1e-3
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("the YOLOX path's kernel K1 is CUDA: needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from busca_tpu_torch.utils.device import set_card_precision
+
+    set_card_precision()  # TF32 off, bf16 products reduced in float32
     return torch.device("cuda")
 
 
@@ -56,12 +57,13 @@ def test_k1_at_the_yolox_letterbox_equals_plain(cuda):
     assert torch.equal(got, want)
 
 
-def _detector(device, test_size, state=None):
+def _detector(device, test_size, state=None, dtype="float32"):
     from busca_tpu_torch.eval.detector import YoloxDetector
     from busca_tpu_torch.models.yolox import YoloxConfig
 
-    return YoloxDetector(YoloxConfig.size("x"), state, test_size=test_size,
-                         conf_thresh=0.3, device=device, seed=0)
+    return YoloxDetector(YoloxConfig.size("x", dtype=dtype), state,
+                         test_size=test_size, conf_thresh=0.3,
+                         device=device, seed=0)
 
 
 def test_yolox_step_on_the_card_matches_the_cpu(cuda):
@@ -89,10 +91,12 @@ def test_yolox_step_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(card_canvas.cpu(), canvas)
 
 
-def test_detect_async_enqueues_without_a_host_sync(cuda):
+def _detect_async_without_a_host_sync(cuda, dtype):
     frames = _frames(2, (540, 960))
     det = _detector(cuda, (416, 736))
     det.calibrate_random_weights(frames, 0.0, 4.0, (100.0, 40.0))
+    if dtype != "float32":
+        det = _detector(cuda, (416, 736), det.model.state_dict(), dtype)
     det.detect(frames[0])  # warm: K1 built, letterbox box cached
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -105,3 +109,13 @@ def test_detect_async_enqueues_without_a_host_sync(cuda):
     again = det.detect(frames[1])
     np.testing.assert_array_equal(out.boxes_tlbr, again.boxes_tlbr)
     np.testing.assert_array_equal(out.scores, again.scores)
+
+
+def test_detect_async_enqueues_without_a_host_sync(cuda):
+    _detect_async_without_a_host_sync(cuda, "float32")
+
+
+def test_bf16_detect_async_enqueues_without_a_host_sync(cuda):
+    """The bf16 step (busca_tpu's bf16 YOLOX config) is enqueue-only too;
+    its rows come back through the same pinned float32 buffers."""
+    _detect_async_without_a_host_sync(cuda, "bfloat16")

@@ -17,7 +17,12 @@ through ``convert_yolox_state_dict``:
 - the port's pipelined loop equal to its serial loop;
 - both packages' ``--mot-dir`` CLI on a tiny MOT sequence written with cv2,
   from the same ``.pth``: the same results (frames and ids; boxes within
-  the loop's tolerance) and CLEAR counts.
+  the loop's tolerance) and CLEAR counts;
+- busca_tpu's bfloat16 mode: the same loop with a designed tiny YOLOX
+  (see BRIGHT_GAIN) and the BUSCA engines of tests/test_torch_bf16_loop.py
+  in bf16 in both packages: detection counts, ids and boxes equal per
+  frame, scores within BF16_SCORE_TOL, third-round probabilities within
+  0.12.
 
 The detector outputs agree to ~1e-6 (tests/test_torch_yolox.py), so the
 loops could only diverge where a score sits within that noise of a
@@ -41,6 +46,8 @@ from busca_tpu_torch.eval import detector as tdetector
 from busca_tpu_torch.models.yolox import YOLOX, YoloxConfig
 from busca_tpu_torch.trackers.base import Track
 from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
+from test_torch_bf16 import PROB_BAR, PROB_PIN
+from test_torch_bf16_loop import bf16_engines  # noqa: F401
 from test_torch_byte_pipeline import CROP_HW, engines  # noqa: F401
 
 TINY = (0.33, 0.125, 1)
@@ -260,7 +267,7 @@ def test_mot_dir_cli_matches_jax(mot_sequence, engines, tmp_path):
                                "--busca-dtype", "float32"])
     Track.reset_id_counter()
     got = trun.main(common + ["--output-dir", str(tmp_path / "torch"),
-                              "--device", "cpu"])
+                              "--busca-dtype", "float32", "--device", "cpu"])
     name = os.path.basename(mot_sequence)
     want_rows = np.loadtxt(tmp_path / "jax" / f"{name}.txt", delimiter=",")
     got_rows = np.loadtxt(tmp_path / "torch" / f"{name}.txt", delimiter=",")
@@ -294,3 +301,159 @@ def test_cli_refuses_flags_of_later_items(mot_sequence, capsys):
         with pytest.raises(SystemExit):
             trun.main(base + argv)
         assert f"item {item}" in capsys.readouterr().err
+
+
+# bf16.  A random tiny YOLOX cannot be held frame by frame in bf16: its
+# rounding noise grows layer by layer to half the spread of its obj logits
+# (busca_tpu's own jitted and op-by-op bf16 forwards differ by up to 0.11
+# in score on these frames), so which of its near-equal cells pass a
+# threshold is noise.  The loop's YOLOX is instead a designed one, all
+# weights zero but for one channel from the stem to level 0's obj output: a
+# colour detector (R + 2G + B over each 2x2 block, above BRIGHT_THRESH per
+# pixel) that the synthetic objects pass by a wide margin and the dark
+# background and the grey letterbox fill do not.  Every layer still runs in
+# bf16 in both packages; the random-weight numerics are held per module in
+# tests/test_torch_bf16_detectors.py.
+BRIGHT_GAIN, BRIGHT_THRESH = 32.0, 0.35
+# measured on these frames: scores within 0.0039 (one bf16 step below 1;
+# a cell on an object's edge scores between 0 and 1), boxes equal (the reg
+# output is its bias); held to two steps
+BF16_SCORE_TOL, BF16_BOX_TOL = 0.008, 0.0
+# no score within this of a threshold (the float32 test's check, at the
+# bf16 score step near 1)
+BF16_THRESHOLD_GAP = 0.008
+
+
+def bright_object_state(config, box_hw=(28.0, 14.0)):
+    """The designed YOLOX's state dict: every BatchNorm the identity, every
+    convolution zero but channel 0 carried through the stem, dark2, dark3,
+    C3_p3, head stem 0 and reg_convs 0 (center tap 1, the CSP layers through
+    their conv2 branch); level 0's obj output is that channel less 4, the
+    other levels' obj biases are -30, the cls biases 4, the boxes ``box_hw``
+    canvas pixels."""
+    import math
+
+    from busca_tpu_torch.models.yolox import BN_EPS
+
+    sd = {k: torch.zeros_like(v)
+          for k, v in YOLOX(config).state_dict().items()}
+    for k in sd:
+        if k.endswith("running_var"):
+            sd[k].fill_(1.0 - BN_EPS)
+        elif k.endswith("bn.weight"):
+            sd[k].fill_(1.0)
+    b = "backbone.backbone."
+    # s2d groups (tl, bl, tr, br) of RGB: R + 2G + B of each pixel
+    sd[b + "stem.conv.conv.weight"][0, :, 1, 1] = BRIGHT_GAIN * torch.tensor(
+        [1.0, 2.0, 1.0] * 4)
+    sd[b + "stem.conv.bn.bias"][0] = -BRIGHT_GAIN * 4 * BRIGHT_THRESH
+    for name, src in ((b + "dark2.0.conv", 0), (b + "dark2.1.conv2.conv", 0),
+                      (b + "dark2.1.conv3.conv", 8), (b + "dark3.0.conv", 0),
+                      (b + "dark3.1.conv2.conv", 0),
+                      (b + "dark3.1.conv3.conv", 16),
+                      ("backbone.C3_p3.conv2.conv", 32),
+                      ("backbone.C3_p3.conv3.conv", 16),
+                      ("head.stems.0.conv", 0), ("head.reg_convs.0.0.conv", 0),
+                      ("head.reg_convs.0.1.conv", 0)):
+        w = sd[name + ".weight"]
+        w[0, src, w.shape[2] // 2, w.shape[3] // 2] = 1.0
+    sd["head.obj_preds.0.weight"][0, 0] = 1.0
+    for lvl, stride in enumerate(config.strides):
+        sd[f"head.obj_preds.{lvl}.bias"].fill_(-4.0 if lvl == 0 else -30.0)
+        sd[f"head.cls_preds.{lvl}.bias"].fill_(4.0)
+        sd[f"head.reg_preds.{lvl}.bias"][2] = math.log(box_hw[1] / stride)
+        sd[f"head.reg_preds.{lvl}.bias"][3] = math.log(box_hw[0] / stride)
+    return sd
+
+
+def _bf16_frames(n=N_FRAMES):
+    """:func:`_frames`, with the first object drawn in the background's
+    colours while it is in its detection dropout window: the designed
+    colour detector misses it there, as the sequence's detector does."""
+    import dataclasses
+
+    from busca_tpu_torch.eval.synthetic import SyntheticSequence
+
+    seq = default_dropout_sequence(40)
+    obj = seq.objects[0]
+    hidden = SyntheticSequence(
+        [dataclasses.replace(obj, color=np.array([40.0, 40.0, 40.0])),
+         *seq.objects[1:]], num_frames=seq.num_frames, height=seq.height,
+        width=seq.width, seed=seq.seed)
+    start = next(t for t in range(seq.num_frames)
+                 if not obj.detected_at(t)) - 3
+    return [(seq if obj.detected_at(t) else hidden).frame(t)
+            for t in range(start, start + n)]
+
+
+@pytest.fixture(scope="module")
+def bf16_detectors():
+    d, w, c = TINY
+    cfg = YoloxConfig(d, w, c, dtype="bfloat16")
+    sd = bright_object_state(cfg)
+    jcfg = JConfig(depth=d, width=w, num_classes=c, dtype="bfloat16")
+    variables = convert_yolox_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, jcfg)
+    kw = dict(test_size=TEST_SIZE, conf_thresh=CONF, nms_thresh=0.7,
+              max_outputs=32)
+    return (jdetector.YoloxDetector(jcfg, variables, **kw),
+            tdetector.YoloxDetector(cfg, sd, device="cpu", **kw))
+
+
+def test_bf16_loop_matches_jax_frame_by_frame(bf16_detectors, bf16_engines):
+    """The loop in busca_tpu's bf16 mode, the designed YOLOX and BUSCA
+    (tests/test_torch_bf16_loop.py's engines) in bf16 in both packages:
+    detection counts, scores and boxes, ids and track boxes per frame, and
+    the third-round probabilities within tests/test_bf16.py's 0.12."""
+    jdet, tdet = bf16_detectors
+    jeng, teng = bf16_engines
+    frames = _bf16_frames()
+    JTrack.reset_id_counter()
+    Track.reset_id_counter()
+    jtrk = JByte(JByteCfg(**TRACKER_KW), jeng)
+    ttrk = ByteTracker(ByteTrackerConfig(**TRACKER_KW), teng)
+    jlog, tlog = [], []
+    probs = {"j": [], "t": []}
+    orig = {}
+    for key, eng in (("j", jeng), ("t", teng)):
+        orig[key] = eng.associate
+
+        def associate(*a, _orig=orig[key], _log=probs[key], **k):
+            out = _orig(*a, **k)
+            _log.append(None if out[0] is None else np.array(out[0]))
+            return out
+
+        eng.associate = associate
+    try:
+        want = jdetector.track_frames_with_detector(
+            jdet, jtrk, frames, min_box_area=0.0, det_log=jlog)
+        got = tdetector.track_frames_with_detector(
+            tdet, ttrk, frames, min_box_area=0.0, det_log=tlog)
+    finally:
+        jeng.associate, teng.associate = orig["j"], orig["t"]
+    score_gap = 0.0
+    for (fj, bj, sj), (ft, bt, st) in zip(jlog, tlog):
+        assert ft == fj and len(st) == len(sj) > 0, f"frame {fj}"
+        np.testing.assert_allclose(bt, bj, rtol=0, atol=BF16_BOX_TOL)
+        score_gap = max(score_gap, float(np.abs(st - sj).max()))
+        gaps = np.abs(np.asarray(sj)[:, None] - np.asarray(THRESHOLDS))
+        assert gaps.min() > BF16_THRESHOLD_GAP, \
+            f"frame {fj}: a score sits on a threshold"
+    for (fj, tl_j, ids_j, _), (ft, tl_t, ids_t, _) in zip(want.results,
+                                                          got.results):
+        assert ids_t == ids_j, f"frame {fj}: ids diverged"
+        np.testing.assert_allclose(np.reshape(tl_t, (-1, 4)),
+                                   np.reshape(tl_j, (-1, 4)), rtol=0,
+                                   atol=LOOP_BOX_TOL)
+    assert len(probs["t"]) == len(probs["j"]) >= 1, "no third round ran"
+    prob_gap = 0.0
+    for a, b in zip(probs["t"], probs["j"]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            prob_gap = max(prob_gap, float(np.abs(a - b).max()))
+    print(f"bf16 YOLOX loop: detections per frame {[len(x[2]) for x in tlog]}"
+          f", scores within {score_gap:.3g}, third-round |dp| "
+          f"{prob_gap:.3g} over {len(probs['t'])} rounds")
+    assert score_gap <= BF16_SCORE_TOL
+    assert prob_gap <= min(PROB_BAR, PROB_PIN)
+    assert sum(len(r[2]) for r in got.results) > 0, "no track was output"

@@ -439,3 +439,15 @@ class TorchDLASeg(tnn.Module):
         self.ida_up(y, 0, len(y))
         return {h: getattr(self, h)(y[-1])
                 for h in ("hm", "reg", "wh", "tracking")}
+
+
+def bf16_scale_ulps(got, want):
+    """max |got - want| in bf16 ulps of the output's scale (the ulp of
+    max |want|: 2 ** (floor(log2 max|want|) - 7)), and the share of values
+    that are equal.  Both are taken as float32 arrays."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7) if scale > 0 else 2.0 ** -133
+    diff = np.abs(got - want)
+    return float(diff.max() / ulp), float((diff == 0).mean())
