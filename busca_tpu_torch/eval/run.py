@@ -1,17 +1,31 @@
-"""CLI: run the BYTE tracker (optionally + BUSCA) and report metrics (port
-of ``busca_tpu.eval.run``).
+"""CLI: run a tracker (optionally + BUSCA) and report metrics (port of
+``busca_tpu.eval.run``).
+
+Trackers (``--tracker``): ``byte``, ``transcenter`` (BYTE with the
+detector-feedback export), ``strongsort``, ``deepsort`` (StrongSORT with its
+upgrades off, the reference's vanilla DeepSORT alternate) and ``ghost``.
 
 Modes:
 - ``--synthetic``: the built-in dropout sequence; base vs BUSCA A/B.
-- ``--mot-dir DIR ... --detector yolox-x``: the live detector-in-the-loop
-  path (reference mot_evaluator.py:131-235) over MOTChallenge sequence
-  directories (``seqinfo.ini``, ``img1/*.jpg``, optional ``gt/gt.txt``):
-  YOLOX (tiny, s, m, l, x) or TransCenter per frame, NMS on the device, the
-  tracker fed with the detections and the device canvas; MOTChallenge
-  result txts under ``--output-dir``, per-sequence CLEAR (and ``--hota``)
-  against the gt, and the accumulated CLEAR as JSON.  The per-video BYTE
-  threshold table applies unless ``--ignore-custom-byte-thresholds``.
-  Frames are decoded with cv2, so this mode runs where cv2 is installed.
+- ``--mot-dir DIR ...``: MOTChallenge sequence directories (``seqinfo.ini``,
+  ``img1/*.jpg``, optional ``gt/gt.txt``), one of three ways:
+  - with ``--detector``: the live detector-in-the-loop path (reference
+    mot_evaluator.py:131-235): YOLOX (tiny, s, m, l, x) or TransCenter per
+    frame, NMS on the device, the tracker fed with the detections and the
+    device canvas;
+  - ``--tracker strongsort --npy-det DIR``: StrongSORT's cached artifacts
+    (deep_sort_app.py): detections with features from ``<seq>.npy``, the
+    ``--min-confidence`` filter, optional ``--ecc-json`` camera warps;
+  - otherwise the cached-detection path: the sequence's ``det/det.txt``.
+
+  StrongSORT, DeepSORT and GHOST take ReID features from a
+  ``--reid-ckpt`` extractor run on each detection's crop (without one, a
+  distinct placeholder per detection).  MOTChallenge result txts go under
+  ``--output-dir``, optionally linked (``--aflink NPZ``) and smoothed
+  (``--gsi``); per-sequence CLEAR (and ``--hota``) against the gt, and the
+  accumulated CLEAR as JSON.  The per-video BYTE threshold table applies
+  unless ``--ignore-custom-byte-thresholds``.  Frames are decoded with cv2,
+  so this mode runs where cv2 is installed.
 
 Example::
 
@@ -19,6 +33,9 @@ Example::
     python -m busca_tpu_torch.eval.run --mot-dir MOT17-05-FRCNN \\
         --detector yolox-x --detector-ckpt bytetrack_x_mot17.pth.tar \\
         --use-busca
+    python -m busca_tpu_torch.eval.run --mot-dir MOT20-01 \\
+        --tracker strongsort --npy-det npy/ --ecc-json ecc.json \\
+        --use-busca --aflink aflink.npz --gsi
     python -m busca_tpu_torch.eval.run --mot-dir seq --detector yolox-tiny \\
         --test-h 128 --test-w 224 --device cpu
 
@@ -37,8 +54,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -95,30 +114,135 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
     return engine, tracker_kwargs
 
 
-def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128)):
-    """A tracker for ``name``: ``byte`` (``bytetrack``) or ``transcenter``
-    (BYTE with the detector-feedback export)."""
-    if name not in ("byte", "bytetrack", "transcenter"):
-        raise ValueError(f"tracker {name!r} is not ported yet (ROADMAP.md "
-                         "Queue 1, slices 4-5)")
-    from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
-    from busca_tpu_torch.trackers.transcenter import TransCenterByteTracker
+# trackers that store per-track appearance-crop memory and take a memory
+# cap (trackers/base.py compact_mem_lists)
+MEM_CAP_TRACKERS = ("byte", "bytetrack", "transcenter", "strongsort",
+                    "deepsort", "ghost")
 
-    known = {f.name for f in dataclasses.fields(ByteTrackerConfig)}
-    cfg = ByteTrackerConfig(
-        **{k: v for k, v in tracker_kwargs.items() if k in known}
-    )
-    cfg.crop_hw = crop_hw
-    cfg.use_busca = engine is not None and tracker_kwargs.get("use_busca",
-                                                              True)
-    if name == "transcenter":
-        return TransCenterByteTracker(cfg, engine)
-    return ByteTracker(cfg, engine)
+
+def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
+                 feature_extractor=None):
+    """A tracker for ``name``: ``byte`` (``bytetrack``), ``transcenter``
+    (BYTE with the detector-feedback export), ``strongsort``, ``deepsort``
+    (StrongSORT with the vanilla DeepSORT defaults) or ``ghost``.  Keys of
+    ``tracker_kwargs`` that the tracker's config does not know are
+    ignored.  ``feature_extractor`` gives GHOST fresh features for its
+    Kalman candidates (GHOST src/tracker.py:684-708); busca_tpu's
+    ``make_tracker`` takes none, so its GHOST reuses the tracks' features
+    there."""
+    if name in ("sort", "motdt"):
+        raise ValueError(f"tracker {name!r} is not ported yet (ROADMAP.md "
+                         "Queue 1 item 17)")
+    if name == "centertrack":
+        raise ValueError("tracker 'centertrack' is not ported yet "
+                         "(ROADMAP.md Queue 1 item 18)")
+    if (tracker_kwargs.get("mem_cap") is not None
+            and name not in MEM_CAP_TRACKERS):
+        raise ValueError(f"mem_cap only applies to trackers that store "
+                         f"appearance memory {MEM_CAP_TRACKERS}")
+
+    def config(cls, **defaults):
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = dict(defaults)
+        kw.update({k: v for k, v in tracker_kwargs.items() if k in known})
+        cfg = cls(**kw)
+        cfg.crop_hw = crop_hw
+        return cfg
+
+    if name in ("byte", "bytetrack", "transcenter"):
+        from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
+        from busca_tpu_torch.trackers.transcenter import (
+            TransCenterByteTracker,
+        )
+
+        cfg = config(ByteTrackerConfig)
+        cfg.use_busca = engine is not None and tracker_kwargs.get(
+            "use_busca", True)
+        if name == "transcenter":
+            return TransCenterByteTracker(cfg, engine)
+        return ByteTracker(cfg, engine)
+    if name in ("strongsort", "deepsort"):
+        from busca_tpu_torch.trackers.strongsort import (
+            StrongSortConfig,
+            StrongSortTracker,
+        )
+
+        # deepsort: the reference's evaluate_deepsort alternate, vanilla
+        # DeepSORT (busca_tpu/eval/run.py:198-207): cascade matching, a
+        # feature gallery, plain Kalman; explicit kwargs still win
+        vanilla = dict(nsa=False, ema=False, mc=False, woc=False,
+                       max_cosine_distance=0.2, nn_budget=100)
+        cfg = config(StrongSortConfig,
+                     **(vanilla if name == "deepsort" else {}))
+        cfg.use_busca = engine is not None
+        return StrongSortTracker(cfg, engine)
+    if name == "ghost":
+        from busca_tpu_torch.trackers.ghost import GhostConfig, GhostTracker
+
+        cfg = config(GhostConfig)
+        cfg.use_busca = engine is not None
+        return GhostTracker(cfg, engine, feature_extractor)
+    raise ValueError(f"unknown tracker: {name}")
+
+
+class FeatureShim:
+    """Adapt the feature-consuming trackers (StrongSORT, GHOST) to the
+    runner's ``update(boxes, scores, scale, frame)`` protocol.
+
+    Features come from a
+    :class:`~busca_tpu_torch.eval.features.ReidFeatureExtractor` when given
+    (the reference GHOST path, base_tracker.py:116): the frame goes to the
+    extractor's device once, the detections are cropped there (kernel K1 on
+    the card) and the crops go into the network without a host copy; the
+    tracker gets the frame on the device and cuts its BUSCA crops from it.
+    Without an extractor each detection gets a distinct placeholder
+    feature (synthetic and smoke runs), as in busca_tpu.
+    """
+
+    def __init__(self, trk, feature_extractor=None, crop_hw=(384, 128),
+                 call_predict=False):
+        self.trk = trk
+        self.feat_fn = feature_extractor
+        self.crop_hw = crop_hw
+        self.call_predict = call_predict
+
+    def _features(self, boxes, scale, frame):
+        n = len(boxes)
+        if self.feat_fn is not None and frame is not None and n:
+            from busca_tpu_torch.trackers.base import device_crops
+
+            crops = device_crops(frame, np.asarray(boxes) * scale,
+                                 self.crop_hw, frame.device)
+            return self.feat_fn(crops)
+        return np.eye(max(n, 1), 16)[:n]
+
+    def update(self, boxes, scores, scale, frame):
+        if self.feat_fn is not None and frame is not None:
+            frame = torch.as_tensor(frame).to(self.feat_fn.device)
+        if self.call_predict:
+            self.trk.predict()
+        feats = self._features(boxes, scale, frame)
+        return self.trk.update(boxes, scores, feats, frame)
+
+
+def shim_for_runner(name: str, tracker, feature_extractor=None,
+                    crop_hw=(384, 128)):
+    """Wrap a tracker for the runner protocol where its native IO differs:
+    StrongSORT and DeepSORT take features and are predicted before each
+    update; GHOST takes features."""
+    if name in ("strongsort", "deepsort"):
+        return FeatureShim(tracker, feature_extractor, crop_hw,
+                           call_predict=True)
+    if name == "ghost":
+        return FeatureShim(tracker, feature_extractor, crop_hw)
+    return tracker
 
 
 def run_synthetic(args, engine, tracker_kwargs, seq=None) -> dict:
     """Base vs BUSCA A/B on the synthetic dropout sequence (or ``seq``).
-    ``args`` needs ``tracker``, ``num_frames`` and ``crop_hw``."""
+    ``args`` needs ``tracker``, ``num_frames`` and ``crop_hw``.  StrongSORT,
+    DeepSORT and GHOST get a placeholder feature per detection, as in
+    busca_tpu."""
     from busca_tpu_torch.eval.metrics import evaluate_hota
     from busca_tpu_torch.eval.runner import (
         evaluate_sequence,
@@ -136,8 +260,10 @@ def run_synthetic(args, engine, tracker_kwargs, seq=None) -> dict:
     if engine is not None:
         variants.append(("busca", engine))
     for tag, eng in variants:
-        tracker = make_tracker(args.tracker, tracker_kwargs, eng,
-                               args.crop_hw)
+        tracker = shim_for_runner(
+            args.tracker,
+            make_tracker(args.tracker, tracker_kwargs, eng, args.crop_hw),
+            crop_hw=args.crop_hw)
         frames = (seq.frame(t) for t in range(seq.num_frames))
         res = run_sequence(tracker, frames, dets, name="synthetic")
         m = evaluate_sequence(res, gt)
@@ -154,14 +280,60 @@ def run_synthetic(args, engine, tracker_kwargs, seq=None) -> dict:
     return out
 
 
+def load_aflink(path: str, device="cuda"):
+    """The AFLink link model from a ``.npz`` of busca_tpu ``AFLinkModel``
+    parameters (``save_params_npz``), on ``device``."""
+    from busca_tpu_torch.models.aflink import AFLinkModel
+    from busca_tpu_torch.models.checkpoint import load_params_npz
+    from busca_tpu_torch.models.convert import aflink_state_dict_from_flax
+    from busca_tpu_torch.utils.device import resolve_device
+
+    model = AFLinkModel()
+    model.load_state_dict(aflink_state_dict_from_flax(load_params_npz(path)))
+    return model.to(resolve_device(device)).eval()
+
+
+def postprocess_result(res, out_path, link_model=None, gsi=False):
+    """AFLink (``link_model``) and GSI over the written result rows, in the
+    reference's order (strong_sort.py:29-46: link first, then smooth);
+    rewrites the txt and returns an updated SequenceResult."""
+    from busca_tpu_torch.eval import mot
+    from busca_tpu_torch.eval.runner import SequenceResult
+    from busca_tpu_torch.trackers.postprocess import (
+        aflink,
+        gaussian_smoothed_interpolation,
+    )
+
+    rows = mot.read_mot_file(out_path)
+    if rows.size == 0:
+        return res
+    if link_model is not None:
+        rows = aflink(rows, model=link_model)
+    if gsi:
+        rows = gaussian_smoothed_interpolation(rows)
+    by_frame = {}
+    for r in rows:
+        by_frame.setdefault(int(r[0]), []).append(r)
+    results = []
+    for f in sorted(by_frame):
+        rs = np.asarray(by_frame[f])
+        results.append(
+            (f, list(rs[:, 2:6]), rs[:, 1].astype(int).tolist(),
+             rs[:, 6].tolist() if rs.shape[1] > 6 else [1.0] * len(rs))
+        )
+    mot.write_results(out_path, results)
+    return SequenceResult(res.name, res.num_frames, results,
+                          res.track_time_s)
+
+
 # flags of busca_tpu's CLI whose code is not ported yet, and the ROADMAP.md
 # Queue 1 item that ports it
 LATER_FLAGS = {
     "lockstep": 21,
+    "mem_cap": 21,
     "detector_artifact": 20,
-    "gsi": 15,
-    "aflink": 15,
     "det_ap": 24,
+    "online_visualization": 25,
 }
 
 
@@ -184,70 +356,124 @@ def build_detector(args):
         nms_thresh=args.det_nms, device=args.device, seed=args.seed)
 
 
-def run_mot_detector(args, detector, engine, tracker_kwargs) -> dict:
-    """The live detector over each ``--mot-dir`` sequence: results file,
-    per-sequence CLEAR (+ HOTA with ``--hota``) where a gt exists, and the
-    accumulated CLEAR printed as JSON.  Returns ``{name: MotMetrics}``."""
-    import itertools
-    import os
-
-    from busca_tpu_torch.eval import mot
-    from busca_tpu_torch.eval.detector import track_frames_with_detector
-    from busca_tpu_torch.eval.loader import sequence_frames
-    from busca_tpu_torch.eval.metrics import (
-        accumulate,
-        evaluate_clear,
-        evaluate_hota,
+def seq_tracker_kwargs(args, tracker_kwargs: dict, name: str) -> dict:
+    """A sequence's tracker kwargs: the per-video BYTE threshold table
+    (mot_evaluator.py:141-164) for the BYTE family, GHOST's per-sequence
+    camera-motion gate (tracking_utils.py:209) when its ECC is on."""
+    from busca_tpu_torch.eval.presets import (
+        custom_byte_thresholds,
+        ghost_is_moving,
     )
-    from busca_tpu_torch.eval.presets import custom_byte_thresholds
-    from busca_tpu_torch.eval.runner import results_to_pred
 
-    per_seq = {}
-    for seq_dir in args.mot_dir:
-        name = os.path.basename(seq_dir.rstrip("/"))
-        # the per-video BYTE threshold table (mot_evaluator.py:141-164)
-        seq_kwargs = dict(tracker_kwargs)
+    seq_kwargs = dict(tracker_kwargs)
+    if args.tracker in ("byte", "transcenter"):
         seq_kwargs.update(custom_byte_thresholds(
             name, seq_kwargs.get("track_thresh", 0.6),
             seq_kwargs.get("track_buffer", 30),
             ignore=args.ignore_custom_byte_thresholds))
-        tracker = make_tracker(args.tracker, seq_kwargs, engine,
-                               args.crop_hw)
-        if hasattr(detector, "reset"):
-            detector.reset()  # per video (mot_evaluator.py:148-150)
-        info = mot.load_seqinfo(seq_dir)
-        frames = iter(sequence_frames(info))
-        if args.max_frames:
-            frames = itertools.islice(frames, args.max_frames)
-        res = track_frames_with_detector(detector, tracker, frames,
-                                         name=info.name)
-        mot.write_results(os.path.join(args.output_dir, f"{name}.txt"),
-                          res.results)
-        stage = ", ".join(
-            f"{k.rstrip('_s')} {v / max(res.num_frames, 1) * 1e3:.1f} "
-            "ms/frame" for k, v in res.stage_times.items())
-        print(f"{name}: {res.num_frames} frames @ {res.fps:.1f} fps "
-              f"({stage})")
+    elif args.tracker == "ghost" and seq_kwargs.get("motion_compensation"):
+        seq_kwargs["is_moving"] = ghost_is_moving(name)
+    return seq_kwargs
+
+
+def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
+            link_model=None) -> dict:
+    """Each ``--mot-dir`` sequence through the live detector, StrongSORT's
+    cached artifacts (``--npy-det``) or its ``det/det.txt``: results file
+    (linked and smoothed when asked), per-sequence CLEAR (+ HOTA with
+    ``--hota``) where a gt exists, and the accumulated CLEAR printed as
+    JSON.  Returns ``{name: MotMetrics}``."""
+    import itertools
+
+    from busca_tpu_torch.eval import mot
+    from busca_tpu_torch.eval.metrics import evaluate_hota
+    from busca_tpu_torch.eval.runner import (
+        evaluate_sequences_parallel,
+        global_metrics,
+        results_to_pred,
+        run_mot_sequence,
+    )
+
+    eval_inputs = {}
+    for seq_dir in args.mot_dir:
+        name = os.path.basename(seq_dir.rstrip("/"))
+        tracker = make_tracker(
+            args.tracker, seq_tracker_kwargs(args, tracker_kwargs, name),
+            engine, args.crop_hw, feature_extractor)
+        out_path = os.path.join(args.output_dir, f"{name}.txt")
+        if args.tracker == "strongsort" and args.npy_det:
+            from busca_tpu_torch.eval.strongsort_io import (
+                load_ecc_warps,
+                run_cached_sequence,
+            )
+
+            det_file = args.npy_det
+            if os.path.isdir(det_file):
+                det_file = os.path.join(det_file, f"{name}.npy")
+            ecc = None
+            if args.ecc_json:
+                ecc = load_ecc_warps(args.ecc_json).get(name)
+            res = run_cached_sequence(
+                seq_dir, det_file, tracker,
+                min_confidence=args.min_confidence, ecc_warps=ecc,
+                output_file=out_path, max_frames=args.max_frames)
+        elif detector is not None:
+            from busca_tpu_torch.eval.detector import (
+                track_frames_with_detector,
+            )
+            from busca_tpu_torch.eval.loader import sequence_frames
+
+            if hasattr(detector, "reset"):
+                detector.reset()  # per video (mot_evaluator.py:148-150)
+            info = mot.load_seqinfo(seq_dir)
+            frames = iter(sequence_frames(info))
+            if args.max_frames:
+                frames = itertools.islice(frames, args.max_frames)
+            res = track_frames_with_detector(
+                detector, shim_for_runner(args.tracker, tracker,
+                                          feature_extractor, args.crop_hw),
+                frames, name=info.name)
+            mot.write_results(out_path, res.results)
+        else:
+            res = run_mot_sequence(
+                seq_dir, shim_for_runner(args.tracker, tracker,
+                                         feature_extractor, args.crop_hw),
+                output_path=out_path, max_frames=args.max_frames)
+        if args.gsi or link_model is not None:
+            res = postprocess_result(res, out_path, link_model, args.gsi)
+        stage = ""
+        if res.stage_times:
+            stage = " (" + ", ".join(
+                f"{k.rstrip('_s')} {v / max(res.num_frames, 1) * 1e3:.1f} "
+                "ms/frame" for k, v in res.stage_times.items()) + ")"
+        print(f"{name}: {res.num_frames} frames @ {res.fps:.1f} fps{stage}")
         gt_path = os.path.join(seq_dir, "gt", "gt.txt")
         if os.path.exists(gt_path):
             gt = mot.read_gt(gt_path)
             pred = results_to_pred(res)
-            per_seq[name] = evaluate_clear(gt, pred)
+            eval_inputs[name] = (gt, pred)
             if args.hota:
                 h = evaluate_hota(gt, pred)
                 print("  " + "  ".join(
                     f"{label} {h[label.lower()] * 100:.3f}"
                     for label in ("HOTA", "DetA", "AssA", "DetRe", "DetPr",
                                   "AssRe", "AssPr", "LocA")))
-    if per_seq:
-        print(json.dumps(accumulate(per_seq).as_dict(), indent=2))
+    per_seq = {}
+    if eval_inputs:
+        # per-sequence CLEAR over a process pool with --eval-workers > 1
+        # (the TrackEval USE_PARALLEL role), then the tally sum
+        per_seq = evaluate_sequences_parallel(
+            eval_inputs, num_workers=args.eval_workers)
+        print(json.dumps(global_metrics(per_seq).as_dict(), indent=2))
     return per_seq
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--tracker", default="byte",
-                        choices=["byte", "transcenter"])
+                        choices=["byte", "strongsort", "deepsort", "ghost",
+                                 "transcenter", "sort", "motdt",
+                                 "centertrack"])
     parser.add_argument("--use-busca", action="store_true")
     parser.add_argument("--busca-config", default=None,
                         help="BUSCA YAML (reference configs load unchanged);"
@@ -270,6 +496,10 @@ def main(argv=None):
     parser.add_argument("--crop-w", type=int, default=128)
     from busca_tpu_torch.trackers.cmc import parse_scale
     parser.add_argument("--cmc-scale", type=parse_scale, default=1.0)
+    parser.add_argument("--ghost-motion-compensation", action="store_true",
+                        help="GHOST's ECC ego-motion compensation of the "
+                             "stored track positions on moving-camera "
+                             "sequences (base_tracker.py:599-633)")
     parser.add_argument("--mot-dir", nargs="*", default=[],
                         help="MOTChallenge sequence directories")
     parser.add_argument("--output-dir", default="results")
@@ -277,7 +507,8 @@ def main(argv=None):
                         choices=["yolox-tiny", "yolox-s", "yolox-m",
                                  "yolox-l", "yolox-x", "transcenter",
                                  "centertrack"],
-                        help="the live detector run per frame")
+                        help="the live detector run per frame; without it "
+                             "--mot-dir reads det/det.txt (or --npy-det)")
     parser.add_argument("--detector-ckpt", default=None,
                         help="official YOLOX .pth or busca_tpu .npz "
                              "(TransCenter: .npz only); default: random "
@@ -298,21 +529,46 @@ def main(argv=None):
     parser.add_argument("--ignore-custom-byte-thresholds",
                         action="store_true",
                         help="disable the per-video BYTE threshold table")
+    # StrongSORT's cached artifacts (deep_sort_app.py:50-52, opts.py:142-143)
+    parser.add_argument("--npy-det", default=None,
+                        help="precomputed detections + features: a .npy "
+                             "file, or a directory holding <seq>.npy")
+    parser.add_argument("--ecc-json", default=None,
+                        help="per-video per-frame ECC warp matrices (JSON)")
+    parser.add_argument("--min-confidence", type=float, default=0.6)
+    parser.add_argument("--reid-ckpt", default=None,
+                        help="GHOST ReID checkpoint (busca_tpu .npz or "
+                             "model_feats.pth) for live per-detection "
+                             "features (strongsort, deepsort, ghost)")
+    parser.add_argument("--eval-workers", type=int, default=1,
+                        help="process-pool workers for the per-sequence "
+                             "metrics")
+    # offline post-processing (strong_sort.py:29-46)
+    parser.add_argument("--gsi", action="store_true",
+                        help="Gaussian-smoothed interpolation of the output "
+                             "trajectories")
+    parser.add_argument("--aflink", default=None, metavar="NPZ",
+                        help="appearance-free tracklet linking with the link "
+                             "model of a busca_tpu AFLink params .npz")
     for flag in LATER_FLAGS:
-        opt = "--" + flag.replace("_", "-")
-        if flag == "aflink":
-            parser.add_argument(opt, default=None)
-        else:
-            parser.add_argument(opt, default=None, nargs="?", const=True)
+        parser.add_argument("--" + flag.replace("_", "-"), default=None,
+                            nargs="?", const=True)
     args = parser.parse_args(argv)
     args.crop_hw = (args.crop_h, args.crop_w)
     for flag, item in LATER_FLAGS.items():
         if getattr(args, flag):
             parser.error(f"--{flag.replace('_', '-')} is not ported yet "
                          f"(ROADMAP.md Queue 1 item {item})")
-    if args.detector == "centertrack":
-        parser.error("--detector centertrack is not ported yet (ROADMAP.md "
-                     "Queue 1 item 18)")
+    if args.aflink == "synthetic":
+        parser.error("--aflink synthetic trains the link model first, not "
+                     "ported yet (ROADMAP.md Queue 1 item 10); pass a "
+                     "params .npz")
+    if args.detector == "centertrack" or args.tracker == "centertrack":
+        parser.error("CenterTrack is not ported yet (ROADMAP.md Queue 1 "
+                     "item 18)")
+    if args.tracker in ("sort", "motdt"):
+        parser.error(f"--tracker {args.tracker} is not ported yet "
+                     "(ROADMAP.md Queue 1 item 17)")
 
     from busca_tpu_torch.utils.device import set_card_precision
 
@@ -327,21 +583,29 @@ def main(argv=None):
         tracker_kwargs["use_busca"] = True
     if args.cmc_scale != 1.0:
         tracker_kwargs["cmc_scale"] = args.cmc_scale
-
+    if args.ghost_motion_compensation:
+        tracker_kwargs["motion_compensation"] = True
     if args.synthetic:
         out = run_synthetic(args, engine, tracker_kwargs)
         print(json.dumps(out, indent=2))
         return out
     if args.mot_dir:
-        if not args.detector:
-            parser.error("--mot-dir needs a live --detector; the cached "
-                         "det/det.txt path is not ported yet (ROADMAP.md "
-                         "Queue 1 item 9)")
-        try:
-            detector = build_detector(args)
-        except ValueError as e:
-            parser.error(str(e))
-        return run_mot_detector(args, detector, engine, tracker_kwargs)
+        detector = None
+        if args.detector:
+            try:
+                detector = build_detector(args)
+            except ValueError as e:
+                parser.error(str(e))
+        feature_extractor = link_model = None
+        if args.reid_ckpt:
+            from busca_tpu_torch.eval.features import ReidFeatureExtractor
+
+            feature_extractor = ReidFeatureExtractor.from_checkpoint(
+                args.reid_ckpt, crop_hw=args.crop_hw, device=args.device)
+        if args.aflink:
+            link_model = load_aflink(args.aflink, args.device)
+        return run_mot(args, detector, engine, tracker_kwargs,
+                       feature_extractor, link_model)
     parser.error("pick a mode: --synthetic or --mot-dir")
 
 

@@ -1,16 +1,24 @@
-"""Sequence runner (port of the single-sequence part of
-``busca_tpu.eval.runner``): drive one tracker over a sequence, filter its
-output like the reference MOT evaluator, and evaluate it."""
+"""Sequence runner and evaluation harness (port of ``busca_tpu.eval.runner``
+in one process): drive one tracker over a sequence, filter its output like
+the reference MOT evaluator, evaluate it, the cached-detection MOTChallenge
+mode (``det/det.txt``), the base-vs-BUSCA A/B, and metric aggregation over
+sequences.
+
+Not here: the frame-synchronized multi-sequence runners (ROADMAP.md item
+21) and the multi-process sharding and tally allgather (item 23).
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from busca_tpu_torch.eval import metrics as metrics_lib
+from busca_tpu_torch.eval import mot
 
 
 @dataclasses.dataclass
@@ -95,3 +103,143 @@ def evaluate_sequence(
     gt: Dict[int, Tuple[np.ndarray, np.ndarray]],
 ) -> metrics_lib.MotMetrics:
     return metrics_lib.evaluate_clear(gt, results_to_pred(seq_result))
+
+
+def run_ab(
+    make_base_tracker: Callable[[], object],
+    make_busca_tracker: Callable[[], object],
+    frames_factory: Callable[[], Iterable],
+    detections: Sequence[Tuple[np.ndarray, np.ndarray]],
+    gt: Dict[int, Tuple[np.ndarray, np.ndarray]],
+    name: str = "seq",
+) -> Dict[str, metrics_lib.MotMetrics]:
+    """The reference's A/B acceptance pattern: the same sequence through the
+    base tracker and the tracker with BUSCA, metrics out."""
+    out = {}
+    for tag, factory in (("base", make_base_tracker),
+                         ("busca", make_busca_tracker)):
+        seq = run_sequence(factory(), frames_factory(), detections, name=name)
+        out[tag] = evaluate_sequence(seq, gt)
+    return out
+
+
+def run_mot_sequence(
+    seq_dir: str,
+    tracker,
+    det_path: Optional[str] = None,
+    output_path: Optional[str] = None,
+    max_frames: Optional[int] = None,
+) -> SequenceResult:
+    """Run a tracker over an on-disk MOTChallenge sequence with its public
+    detections (``det/det.txt``, or ``det_path``): the cached-detection
+    evaluation mode.  Frames are decoded with cv2."""
+    import cv2
+
+    info = mot.load_seqinfo(seq_dir)
+    det_path = det_path or os.path.join(seq_dir, "det", "det.txt")
+    dets_by_frame = mot.read_detections(det_path)
+    n = info.seq_length
+    if max_frames:
+        n = min(n, max_frames)
+
+    def frames():
+        for f in range(1, n + 1):
+            yield cv2.imread(info.frame_path(f))
+
+    detections = [
+        dets_by_frame.get(f, (np.zeros((0, 4)), np.zeros(0)))
+        for f in range(1, n + 1)
+    ]
+    result = run_sequence(tracker, frames(), detections, name=info.name)
+    if output_path:
+        mot.write_results(output_path, result.results)
+    return result
+
+
+def _eval_one(args):
+    name, gt, pred, iou_threshold = args
+    return name, metrics_lib.evaluate_clear(gt, pred, iou_threshold)
+
+
+def evaluate_sequences_parallel(
+    per_seq: Dict[str, Tuple[dict, dict]],
+    num_workers: int = 8,
+    iou_threshold: float = 0.5,
+) -> Dict[str, metrics_lib.MotMetrics]:
+    """CLEAR metrics of each sequence, over a process pool when
+    ``num_workers`` > 1 (the TrackEval ``USE_PARALLEL`` role,
+    adapters/GHOST/src/eval_track_eval.py:97-98).
+
+    Args:
+      per_seq: ``{name: (gt, pred)}`` in the ``evaluate_clear`` formats.
+    """
+    items = [(name, gt, pred, iou_threshold)
+             for name, (gt, pred) in per_seq.items()]
+    if num_workers <= 1 or len(items) <= 1:
+        return dict(_eval_one(i) for i in items)
+    import multiprocessing as mp
+
+    with mp.get_context("spawn").Pool(min(num_workers, len(items))) as pool:
+        return dict(pool.map(_eval_one, items))
+
+
+# tally layout: count-like sufficient statistics of MotMetrics, so that
+# aggregation is a plain vector sum (equal to metrics.accumulate)
+_TALLY_DIM = 10
+
+
+def metrics_to_tally(m: metrics_lib.MotMetrics) -> np.ndarray:
+    """MotMetrics -> additive sufficient-statistics vector ``[10]`` (f64)."""
+    idtp = m.idr * m.num_gt
+    # num_pred is carried explicitly; the idp reconstruction (fallback for
+    # metrics without it) collapses to 0 when idp == 0
+    total_p = m.num_pred if m.num_pred else (
+        (idtp / m.idp) if m.idp > 0 else 0.0
+    )
+    return np.asarray(
+        [
+            m.num_gt,
+            m.num_false_positives,
+            m.num_misses,
+            m.num_switches,
+            m.num_matches,
+            m.motp * m.num_matches,
+            idtp,
+            total_p,
+            m.mostly_tracked,
+            m.mostly_lost,
+        ],
+        dtype=np.float64,
+    )
+
+
+def tally_to_metrics(t: np.ndarray) -> metrics_lib.MotMetrics:
+    """Inverse of :func:`metrics_to_tally` after summation."""
+    num_gt, fp, fn, idsw, matches, motp_w, idtp, total_p, mt, ml = t
+    return metrics_lib.MotMetrics(
+        mota=1.0 - (fp + fn + idsw) / num_gt if num_gt else 0.0,
+        motp=motp_w / matches if matches else 0.0,
+        idf1=2 * idtp / (num_gt + total_p) if (num_gt + total_p) else 0.0,
+        idp=idtp / total_p if total_p else 0.0,
+        idr=idtp / num_gt if num_gt else 0.0,
+        num_switches=int(idsw),
+        num_false_positives=int(fp),
+        num_misses=int(fn),
+        num_matches=int(matches),
+        num_gt=int(num_gt),
+        mostly_tracked=int(mt),
+        mostly_lost=int(ml),
+        num_pred=int(total_p),
+    )
+
+
+def global_metrics(
+    per_seq: Dict[str, metrics_lib.MotMetrics],
+) -> metrics_lib.MotMetrics:
+    """Aggregate metrics over the sequences of this process: the summed
+    tallies back to metrics (equal to ``metrics.accumulate``).  The
+    multi-process allgather of busca_tpu's version is ROADMAP.md item 23."""
+    local = np.zeros(_TALLY_DIM, np.float64)
+    for m in per_seq.values():
+        local += metrics_to_tally(m)
+    return tally_to_metrics(local)

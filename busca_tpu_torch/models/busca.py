@@ -110,6 +110,31 @@ class _ReIDEncoder(nn.Module):
         self.model = model
 
 
+def seeded_init(module: nn.Module, generator: torch.Generator):
+    """Seeded random weights: lecun-normal matrices and convolutions,
+    xavier-uniform qkv projections, N(0, 1) special tokens, zero biases,
+    unit norm scales.  ``generator`` is a CPU ``torch.Generator``."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.endswith("_token"):
+                val = torch.randn(p.shape, generator=generator)
+            elif leaf == "in_proj_weight":
+                bound = float(np.sqrt(6.0 / (p.shape[0] + p.shape[1])))
+                val = (torch.rand(p.shape, generator=generator) * 2 - 1) \
+                    * bound
+            elif p.dim() >= 2:
+                fan_in = int(np.prod(p.shape[1:]))
+                val = torch.randn(p.shape, generator=generator) \
+                    / float(np.sqrt(fan_in))
+            elif leaf == "weight":
+                val = torch.ones(p.shape)
+            else:
+                val = torch.zeros(p.shape)
+            p.copy_(val.to(p.device))
+    return module
+
+
 class BuscaModel(nn.Module):
     """The decision Transformer + ReID encoder."""
 
@@ -138,28 +163,8 @@ class BuscaModel(nn.Module):
                                      TorchLinear(d_model, 1))
 
     def init_weights(self, generator: torch.Generator):
-        """Seeded random weights: lecun-normal matrices and convolutions,
-        xavier-uniform qkv projections, N(0, 1) special tokens, zero biases,
-        unit norm scales.  ``generator`` is a CPU ``torch.Generator``."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if name.endswith("_token"):
-                    val = torch.randn(p.shape, generator=generator)
-                elif leaf == "in_proj_weight":
-                    bound = float(np.sqrt(6.0 / (p.shape[0] + p.shape[1])))
-                    val = (torch.rand(p.shape, generator=generator) * 2 - 1) \
-                        * bound
-                elif p.dim() >= 2:
-                    fan_in = int(np.prod(p.shape[1:]))
-                    val = torch.randn(p.shape, generator=generator) \
-                        / float(np.sqrt(fan_in))
-                elif leaf == "weight":
-                    val = torch.ones(p.shape)
-                else:
-                    val = torch.zeros(p.shape)
-                p.copy_(val.to(p.device))
-        return self
+        """Seeded random weights (:func:`seeded_init`)."""
+        return seeded_init(self, generator)
 
     def forward(
         self,

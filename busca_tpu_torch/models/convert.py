@@ -15,7 +15,7 @@ reference ``.pth`` into a :class:`~busca_tpu_torch.models.busca.BuscaModel`.
 whose port keeps the flax module names, and
 :func:`yolox_state_dict_from_flax` for YOLOX (the inverse of
 ``busca_tpu.models.yolox.convert_yolox_state_dict``: the official YOLOX key
-layout).
+layout), and :func:`aflink_state_dict_from_flax` for the AFLink link model.
 """
 
 from __future__ import annotations
@@ -115,6 +115,17 @@ def resnet_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """ReIDResNet flax variables -> the bare GHOST ResNet torch state dict
     (the inverse of ``convert_resnet_state_dict``)."""
     return _convert(variables, _resnet_key)
+
+
+def aflink_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """busca_tpu ``AFLinkModel`` flax parameters (``{'params': ...}`` or the
+    bare tree, as numpy) -> the port's
+    :class:`~busca_tpu_torch.models.aflink.AFLinkModel` state dict (the
+    inverse of busca_tpu's ``convert_aflink_state_dict``): the mapping of
+    :func:`transcenter_state_dict_from_flax` (kernels to torch layouts,
+    ``scale`` to ``weight``), with ``temporal_{i}`` as ``temporal.{i}``."""
+    return {re.sub(r"^temporal_(\d+)\.", r"temporal.\1.", k): v
+            for k, v in transcenter_state_dict_from_flax(params).items()}
 
 
 def transcenter_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:

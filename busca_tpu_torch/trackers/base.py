@@ -418,40 +418,64 @@ def remove_duplicate_tracks(a: List[Track], b: List[Track]):
 KALMAN_CANDIDATE_CONF = 0.10000001
 
 
-def extract_uint8_crops(frame, boxes_tlbr, crop_hw, bank=None,
-                        device="cuda") -> List[np.ndarray]:
-    """Uint8 BGR ReID crops for a batch of boxes — one crop-op call (kernel
-    K1 on a CUDA device) replacing the reference's per-box cv2 loop.
-    Normalization happens later in the association engine.
-
-    ``frame``: uint8 BGR ``[H, W, 3]``, numpy or a tensor (moved to
-    ``device`` if it is not there).  With a
-    :class:`~busca_tpu_torch.assoc.bank.DeviceCropBank` the device crops are
-    also copied into the bank before the host fetch, and the returned host
-    mirrors carry their unit ids.
-    """
-    if frame is None or len(boxes_tlbr) == 0:
-        return []
+def host_frame(frame) -> np.ndarray:
+    """A frame as a host array: a tensor (a frame on a device) is copied
+    back; CMC's ECC runs on the host."""
     import torch
 
-    from busca_tpu_torch.assoc.bank import next_uid, tag
+    if torch.is_tensor(frame):
+        return frame.cpu().numpy()
+    return np.asarray(frame)
+
+
+def device_crops(frame, boxes_tlbr, crop_hw, device="cuda"):
+    """Uint8-valued BGR crops ``[N, h, w, 3]`` (float32) of a batch of boxes
+    on ``device``: one crop-op call (kernel K1 on a CUDA device) replacing
+    the reference's per-box cv2 loop.
+
+    ``frame``: uint8 BGR ``[H, W, 3]``, numpy or a tensor (moved to
+    ``device`` if it is not there).
+    """
+    import torch
+
     from busca_tpu_torch.ops.crop import crop_resize_normalize
 
     frame_t = torch.as_tensor(frame).to(device)
     boxes = torch.as_tensor(
         np.asarray(boxes_tlbr, dtype=np.float32).reshape(-1, 4)
     ).to(frame_t.device)
-    n = boxes.shape[0]
-    crops_dev = crop_resize_normalize(
+    return crop_resize_normalize(
         frame_t, boxes, crop_hw, normalize=False, bgr_input=True,
         rgb_output=False, quantize_uint8=True,
     )
+
+
+def host_crops(crops_dev, bank=None) -> List[np.ndarray]:
+    """Host uint8 copies of :func:`device_crops`' output for the track
+    memories.  With a :class:`~busca_tpu_torch.assoc.bank.DeviceCropBank`
+    the device crops are also copied into the bank before the host fetch,
+    and the returned host mirrors carry their unit ids."""
+    import torch
+
+    from busca_tpu_torch.assoc.bank import next_uid, tag
+
+    n = crops_dev.shape[0]
     if bank is not None:
         uids = bank.put_device(crops_dev, n)
     else:
         uids = [next_uid() for _ in range(n)]
     crops = crops_dev.to(torch.uint8).cpu().numpy()
     return [tag(crops[i], uids[i]) for i in range(n)]
+
+
+def extract_uint8_crops(frame, boxes_tlbr, crop_hw, bank=None,
+                        device="cuda") -> List[np.ndarray]:
+    """Uint8 BGR ReID crops for a batch of boxes, on the host
+    (:func:`device_crops` then :func:`host_crops`).  Normalization happens
+    later in the association engine."""
+    if frame is None or len(boxes_tlbr) == 0:
+        return []
+    return host_crops(device_crops(frame, boxes_tlbr, crop_hw, device), bank)
 
 
 def run_third_round(

@@ -37,6 +37,7 @@ from busca_tpu_torch.trackers.base import (
     Track,
     TrackState,
     extract_uint8_crops,
+    host_frame,
     joint_tracks,
     remove_duplicate_tracks,
     run_third_round,
@@ -285,7 +286,7 @@ class ByteTracker:
                 third_pool = unassigned
                 if cfg.use_camera_motion_compensation and self.frame_id > 1:
                     cmc.compensate_tracks(
-                        third_pool, self.last_image, _host(frame),
+                        third_pool, self.last_image, host_frame(frame),
                         scale=cfg.cmc_scale,
                     )
                 kalman_cands = self._kalman_candidates(third_pool, frame_t)
@@ -370,7 +371,7 @@ class ByteTracker:
             and self.use_busca
             and cfg.use_camera_motion_compensation
         )
-        self.last_image = _host(frame).copy() if keep_frame else None
+        self.last_image = host_frame(frame).copy() if keep_frame else None
         return [t for t in self.tracked if t.is_activated]
 
     # ------------------------------------------------------------ internals --
@@ -412,14 +413,6 @@ class ByteTracker:
         """Detection-coverage gate (byte_tracker.py:459-465, 574-623)."""
         cov = detection_coverage(frame, active_tracks)
         return cov["area_covered"] > cov["area_covered_per_obj"] * p[0] + p[1]
-
-
-def _host(frame) -> np.ndarray:
-    """A frame as a host array: a tensor (a detector's canvas on its
-    device) is copied back; CMC's ECC runs on the host."""
-    if torch.is_tensor(frame):
-        return frame.cpu().numpy()
-    return np.asarray(frame)
 
 
 def detection_coverage(frame: np.ndarray, tracks: Sequence[Track]) -> dict:

@@ -55,7 +55,18 @@ Phases (each failure exits non-zero before the result line):
    that ``detect_async`` enqueues without a host sync and returns before its
    step ends; then the bf16 YOLOX-X step (the detector's bf16 config): its
    time and profile, and its decoded rows held against the float32 step's;
-8. the ``kernels`` JSON line, then the result line
+8. StrongSORT and GHOST with BUSCA in bf16 on a seeded crowd (96 objects
+   at 1080x1920, 30 frames, dropouts and score dips): the full-width ReID
+   extractor (ResNet-50, 384x128, 512-d, float32) with K1 held against its
+   plain version at the first frame's boxes, 16 crops against the CPU, a
+   300-crop batch against its 256 + 44 chunks run apart, and its time at
+   the frame's batch; ``make_tracker`` + ``shim_for_runner`` through
+   ``run_sequence``, base vs BUSCA, for StrongSORT and GHOST (ECC off: the
+   card host has no cv2), DeepSORT base on 10 frames; K1's launches read
+   around the StrongSORT and GHOST runs; AFLink (seeded random link model)
+   and GSI over StrongSORT's rows cut at their gaps, on the card against
+   the CPU; one device profile of a frame with a third round per tracker;
+9. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -127,6 +138,19 @@ YX_FRAMES = 20
 YX_CLS_BIAS, YX_BOX_HW = 4.0, (200.0, 80.0)
 YX_OBJ_GAINS, YX_FIRST_DETS, YX_MAX_DETS = (1, 2, 4, 8, 16, 32), 15, 20
 YX_CONF, YX_TRACK_THRESH = 0.3, 0.5
+# Phase 8's crowd: StrongSORT+BUSCA's dense-crowd configuration
+# (BASELINE.json config 3) at a density the renderer draws.  96 objects of
+# 40-80 x 100-200 px with distinct colours at 1080x1920 over 30 frames,
+# detector noise 1 px; every third object has a 4-10 frame dropout from
+# frame 8 on (once StrongSORT's n_init = 3 has confirmed it), every sixth
+# (of the others) a score dip below min_confidence = 0.6.  The cuts: 30
+# frames, random weights.
+CROWD_OBJECTS, CROWD_FRAMES, CROWD_SEED = 96, 30, 8
+FEAT_CPU_CROPS = 16  # the card-vs-CPU feature batch
+FEAT_TOL = 1e-3  # ReID features, card vs CPU, float32 with TF32 off
+CHUNK_CROPS, CHUNK_TOL = 300, 1e-5  # one batch vs its 256 + 44 chunks
+DEEPSORT_FRAMES = 10
+LINK_TOL = 1e-5  # AFLink probabilities, card vs CPU
 
 
 class PhaseError(RuntimeError):
@@ -785,18 +809,24 @@ KERNEL_KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("softmax", ("softmax",)),
     ("layer norm", ("layer_norm", "layernorm")),
     ("sort", ("sort", "radix")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "unrolled")),
 )
 
 
-def profile_step(step, step_ms, reps=3, label="detector step"):
+def profile_step(step, step_ms, reps=3, label="detector step",
+                 warmup=True):
     """Device time of ``reps`` calls of ``step`` by kernel kind
     (torch.profiler), and its idle share of ``step_ms``, the step's time
     measured without the profiler (whose own overhead stretches the
-    profiled wall time)."""
+    profiled wall time).  ``warmup=False`` profiles the first call (a
+    stateful step, such as a tracker's update, runs once).  Returns the
+    device ms by kind."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    if warmup:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -816,7 +846,7 @@ def profile_step(step, step_ms, reps=3, label="detector step"):
     if not busy:
         print(f"{label} profile: the profiler recorded no device time "
               "(not measured)")
-        return
+        return by_kind
     parts = ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f}%)"
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1]))
@@ -824,8 +854,10 @@ def profile_step(step, step_ms, reps=3, label="detector step"):
           f"{busy:.2f} ms of the {step_ms:.2f} ms step, idle "
           f"{100 * (1 - busy / step_ms):.1f}%; {parts}")
     up = by_kind.get("upsample", 0.0)
-    print(f"{label} profile: upsample {up:.2f} ms "
-          f"({100 * up / busy:.1f}% of the device time)")
+    if up:
+        print(f"{label} profile: upsample {up:.2f} ms "
+              f"({100 * up / busy:.1f}% of the device time)")
+    return by_kind
 
 
 def check_against_cpu(det, device):
@@ -1319,6 +1351,381 @@ def yolox_bf16_step(det, frame, canvas, xin, flops):
                  label="YOLOX-X bf16 step")
 
 
+def crowd_sequence():
+    """Phase 8's seeded crowd (see CROWD_OBJECTS)."""
+    import numpy as np
+
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticObject,
+        SyntheticSequence,
+    )
+
+    rng = np.random.RandomState(CROWD_SEED)
+    h, w = FRAME_HW
+    n = CROWD_FRAMES
+    objs = []
+    while len(objs) < CROWD_OBJECTS:
+        color = rng.randint(30, 226, 3).astype(np.float64)
+        if any(np.abs(color - o.color).sum() < 40 for o in objs):
+            continue  # distinct colours
+        bw, bh = rng.uniform(40, 80), rng.uniform(100, 200)
+        vx, vy = rng.uniform(-2, 2), rng.uniform(-1, 1)
+        # the whole trajectory stays in the frame
+        x0 = rng.uniform(max(0.0, -vx * n), w - bw - max(0.0, vx * n))
+        y0 = rng.uniform(max(0.0, -vy * n), h - bh - max(0.0, vy * n))
+        kw = {}
+        if len(objs) % 3 == 0:
+            start = int(rng.randint(8, n - 5))
+            kw["dropout"] = (start, start + int(rng.randint(4, 11)))
+        elif len(objs) % 6 == 1:
+            start = int(rng.randint(3, n - 5))
+            kw["score_dip"] = (start, start + int(rng.randint(4, 11)))
+            kw["dip_score"] = float(rng.uniform(0.3, 0.5))
+        objs.append(SyntheticObject(color=color, x0=x0, y0=y0, vx=vx, vy=vy,
+                                    w=bw, h=bh, **kw))
+    return SyntheticSequence(objs, num_frames=n, height=h, width=w,
+                             det_noise=1.0, seed=CROWD_SEED)
+
+
+def reid_flops(model, x):
+    """float32 operations of one ReID forward on ``x``: its convolutions
+    (:func:`conv_flops`) and the two linears (2048 -> 512 -> classes)."""
+    linear = sum(2 * m.in_features * m.out_features
+                 for m in (model.red, model.fc) if m is not None)
+    return conv_flops(model, x) + linear * x.shape[0]
+
+
+def phase_extractor(device, ext, frames, dets):
+    """The full-width ReID extractor on the card: K1 at the crowd's first
+    frame against its plain version, 16 crops against the CPU, a 300-crop
+    batch against its two 256-crop chunks run apart, and the network's time
+    at the frame's batch.  Returns that time in ms."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.features import ReidFeatureExtractor
+    from busca_tpu_torch.ops import crop_cuda
+    from busca_tpu_torch.trackers.base import device_crops
+
+    frame = torch.as_tensor(frames[0]).to(device)
+    boxes_np = np.asarray(dets[0][0], np.float32)
+    boxes = torch.from_numpy(boxes_np).to(device)
+    out, scratch = crop_cuda.buffers(len(boxes_np), CROP_HW, device)
+    hold_k1(f"K1 at the crowd's first frame ({len(boxes_np)} boxes, "
+            f"{FRAME_HW} -> {CROP_HW})", frame, boxes, scratch, out,
+            K1_MAIN_KW, timed=False)
+    crops = device_crops(frame, boxes_np, CROP_HW, device)
+
+    cpu = ReidFeatureExtractor(
+        {k: v.cpu() for k, v in ext.model.state_dict().items()},
+        device="cpu")
+    sub = crops[:FEAT_CPU_CROPS]
+    t0 = time.perf_counter()
+    want = cpu(sub.cpu())
+    cpu_s = time.perf_counter() - t0
+    got = ext(sub)
+    err = float(np.abs(got - want).max())
+    norm = float(np.abs(np.linalg.norm(got, axis=1) - 1).max())
+    print(f"ReID extractor card vs CPU ({FEAT_CPU_CROPS} crops as one "
+          f"batch, the CPU pass {cpu_s:.2f} s): max|diff| {err:.3g} (tol "
+          f"{FEAT_TOL}); | |f| - 1 | <= {norm:.2g}")
+    check(got.shape == (FEAT_CPU_CROPS, ext.feature_dim)
+          and np.isfinite(got).all(), "non-finite or misshapen features")
+    check(err <= FEAT_TOL, f"ReID features card vs CPU: {err}")
+
+    pool = torch.cat([device_crops(frames[t], dets[t][0], CROP_HW, device)
+                      for t in range(4)])[:CHUNK_CROPS]
+    check(len(pool) == CHUNK_CROPS, f"only {len(pool)} crops for the "
+          "chunk check")
+    step = ext.buckets[-1]
+    whole = ext.features(pool)
+    apart = torch.cat([ext.features(pool[:step]), ext.features(pool[step:])])
+    err = float((whole - apart).abs().max())
+    print(f"ReID extractor: {CHUNK_CROPS} crops in one call vs its first "
+          f"{step} and last {CHUNK_CROPS - step} run apart: max|diff| "
+          f"{err:.3g} (tol {CHUNK_TOL})")
+    check(err <= CHUNK_TOL, f"the chunk boundary moved: {err}")
+
+    ms = cuda_time_ms(lambda: ext.features(crops), reps=10, warmup=2)
+    x = ((crops / ext._255 - ext._mean) / ext._std).flip(-1)
+    flops = reid_flops(ext.model, x)
+    print(f"ReID ResNet-50 at the frame's batch ({len(crops)} crops "
+          f"{CROP_HW}, float32, TF32 off): {ms:.3f} ms per call, "
+          f"{flops / 1e9:.1f} GFLOP, {flops / ms / 1e9:.2f} TFLOP/s = "
+          f"{100 * flops / (ms * 1e-3) / FP32_FLOPS_PER_S:.1f}% of the "
+          "67 TFLOP/s float32 peak")
+    return ms
+
+
+class Counted:
+    """Counts the calls of one method of an object (an engine's
+    ``associate``, a tracker's ``_kalman_candidates``) while installed."""
+
+    def __init__(self, obj, method):
+        self.obj, self.method, self.calls = obj, method, 0
+        self.orig = getattr(obj, method)
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.orig(*a, **k)
+
+        setattr(obj, method, counted)
+
+    def remove(self):
+        delattr(self.obj, self.method)
+
+
+def run_feature_tracker(label, name, engine, ext, frames, dets, gt,
+                        kwargs):
+    """One run of ``make_tracker(name)`` + ``shim_for_runner`` with the
+    extractor through ``run_sequence``: metrics, ms/frame, the extractor's
+    share, detections per frame, third rounds.  Returns ``(result,
+    stats)``; ``stats`` has each frame's seconds and whether it ran a third
+    round."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.metrics import evaluate_hota
+    from busca_tpu_torch.eval.run import make_tracker, shim_for_runner
+    from busca_tpu_torch.eval.runner import (
+        evaluate_sequence,
+        results_to_pred,
+        run_sequence,
+    )
+
+    tracker = make_tracker(name, dict(kwargs), engine, CROP_HW, ext)
+    shim = shim_for_runner(name, tracker, ext, CROP_HW)
+    stats = {"frame_s": [], "third": [], "ext_s": 0.0}
+    feats = ext.features
+
+    def timed_features(crops):
+        t0 = time.perf_counter()
+        out = feats(crops)
+        torch.cuda.synchronize()
+        stats["ext_s"] += time.perf_counter() - t0
+        return out
+
+    ext.features = timed_features
+    rounds = Counted(engine, "associate") if engine is not None else None
+    kalman = (Counted(tracker, "_kalman_candidates") if name == "ghost"
+              else None)
+    update = shim.update
+
+    def timed_update(*a):
+        r0 = rounds.calls if rounds else 0
+        t0 = time.perf_counter()
+        out = update(*a)
+        stats["frame_s"].append(time.perf_counter() - t0)
+        stats["third"].append(bool(rounds) and rounds.calls > r0)
+        return out
+
+    shim.update = timed_update
+    try:
+        res = run_sequence(shim, frames, dets, name=label)
+    finally:
+        del ext.features
+        for c in (rounds, kalman):
+            if c is not None:
+                c.remove()
+    m = evaluate_sequence(res, gt)
+    h = evaluate_hota(gt, results_to_pred(res))
+    ms = 1e3 * sum(stats["frame_s"]) / res.num_frames
+    stats["third_rounds"] = rounds.calls if rounds else 0
+    stats["kalman_feature_calls"] = kalman.calls if kalman else 0
+    n_dets = np.mean([len(b) for b, _ in dets])
+    print(f"{label}: MOTA {m.mota:.4f} IDF1 {m.idf1:.4f} HOTA "
+          f"{h['hota']:.4f} IDs {m.num_switches} FP {m.num_false_positives} "
+          f"FN {m.num_misses}; {ms:.2f} ms/frame over {res.num_frames} "
+          f"frames, the extractor {100 * stats['ext_s'] / sum(stats['frame_s']):.1f}% "
+          f"of it; {n_dets:.1f} detections per frame; "
+          f"{stats['third_rounds']} third rounds")
+    check(all(np.isfinite(v) for v in (m.mota, m.idf1, h["hota"])),
+          f"{label}: non-finite metrics")
+    return res, stats
+
+
+def result_rows(res):
+    """A SequenceResult as MOT rows [frame, id, x, y, w, h, score, -1, -1,
+    -1]."""
+    import numpy as np
+
+    rows = [[f, tid, *tlwh, conf, -1, -1, -1]
+            for f, tlwhs, ids, confs in res.results
+            for tlwh, tid, conf in zip(tlwhs, ids, confs)]
+    return np.asarray(rows, np.float64).reshape(-1, 10)
+
+
+def cut_at_gaps(rows):
+    """Each track cut into tracklets at its gaps (a new id after every
+    missing frame), as a tracker that does not coast would emit them."""
+    import numpy as np
+
+    out = rows.copy()
+    next_id = int(rows[:, 1].max()) + 1 if len(rows) else 1
+    for tid in np.unique(rows[:, 1]):
+        idx = np.where(rows[:, 1] == tid)[0]
+        idx = idx[np.argsort(rows[idx, 0])]
+        new = tid
+        for a, b in zip(idx[:-1], idx[1:]):
+            if rows[b, 0] - rows[a, 0] > 1:
+                new, next_id = next_id, next_id + 1
+            out[b, 1] = new
+    return out
+
+
+def phase_link_and_smooth(device, rows):
+    """AFLink (seeded random link model) and GSI over StrongSORT's rows cut
+    at their gaps, on the card and on the CPU: the probabilities within
+    LINK_TOL, the links and the linked and smoothed rows equal but where
+    two probabilities (or one and thrP) lie within LINK_TOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.models.aflink import AFLinkModel
+    from busca_tpu_torch.models.busca import seeded_init
+    from busca_tpu_torch.trackers import postprocess as pp
+
+    thr_p = 0.05
+    rows = cut_at_gaps(rows)
+    cpu = seeded_init(AFLinkModel(), torch.Generator().manual_seed(3)).eval()
+    card = copy.deepcopy(cpu).to(device)
+    tracks = pp._split_tracks(rows)
+    cands = pp.link_candidates(tracks)
+    check(len(cands) > 0, "no AFLink candidate pair")
+    t0 = time.perf_counter()
+    p_card = pp.candidate_probs(tracks, cands, card)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    p_cpu = pp.candidate_probs(tracks, cands, cpu)
+    err = float(np.abs(p_card - p_cpu).max())
+    order = np.argsort(p_cpu)
+    tied = set()
+    for a, b in zip(order[:-1], order[1:]):
+        if p_cpu[b] - p_cpu[a] <= LINK_TOL:
+            tied |= {a, b}
+    tied |= set(np.where(np.abs(p_cpu - thr_p) <= LINK_TOL)[0].tolist())
+    links_card = pp.greedy_links(cands, p_card, thr_p)
+    links_cpu = pp.greedy_links(cands, p_cpu, thr_p)
+    tied_pairs = {cands[k] for k in tied}
+    print(f"AFLink over StrongSORT's rows cut at their gaps: "
+          f"{len(tracks)} tracklets, {len(cands)} candidate pairs, "
+          f"{len(links_cpu)} links; card vs CPU probabilities max|diff| "
+          f"{err:.3g} (tol {LINK_TOL}); {len(tied)} candidates within "
+          f"{LINK_TOL} of another or of thrP; the card's scoring call "
+          f"{card_ms:.2f} ms")
+    check(err <= LINK_TOL, f"AFLink probabilities card vs CPU: {err}")
+    check(set(links_card) - tied_pairs == set(links_cpu) - tied_pairs,
+          "AFLink links differ between the card and the CPU")
+    linked = pp.aflink(rows, model=card)
+    smoothed = pp.gaussian_smoothed_interpolation(linked)
+    if not tied:
+        want = pp.merge_links(rows, links_cpu)
+        check(np.array_equal(linked, want)
+              and np.array_equal(smoothed,
+                                 pp.gaussian_smoothed_interpolation(want)),
+              "linked or smoothed rows differ between the card and the CPU")
+    check(np.isfinite(smoothed).all(), "non-finite smoothed rows")
+    print(f"AFLink + GSI: {len(rows)} rows, {len(np.unique(rows[:, 1]))} "
+          f"ids -> linked {len(np.unique(linked[:, 1]))} ids -> GSI "
+          f"{len(smoothed)} rows; card rows equal the CPU's"
+          + ("" if not tied else " (compared on the untied links only)"))
+
+
+def profile_third_round_frame(label, name, engine, ext, frames, dets, stats,
+                              kwargs):
+    """Replay the run up to its first frame with a third round, and profile
+    that frame's update by kernel kind, with the device's idle share over
+    the frame's wall time in the measured run."""
+    from busca_tpu_torch.eval.run import make_tracker, shim_for_runner
+
+    k = stats["third"].index(True)
+    tracker = make_tracker(name, dict(kwargs), engine, CROP_HW, ext)
+    shim = shim_for_runner(name, tracker, ext, CROP_HW)
+    for t in range(k):
+        shim.update(dets[t][0], dets[t][1], 1.0, frames[t])
+    rounds = Counted(engine, "associate")
+    try:
+        profile_step(lambda: shim.update(dets[k][0], dets[k][1], 1.0,
+                                         frames[k]),
+                     stats["frame_s"][k] * 1e3, reps=1, warmup=False,
+                     label=f"{label} frame {k + 1} (a third round)")
+    finally:
+        rounds.remove()
+    check(rounds.calls >= 1, f"{label}: the profiled frame ran no third "
+          "round")
+
+
+def phase_feature_trackers(device, engine):
+    """Phase 8: StrongSORT and GHOST with BUSCA, and DeepSORT, on the crowd,
+    with the full-width ReID extractor; AFLink and GSI over StrongSORT's
+    rows.  Returns K1's launches on the StrongSORT and GHOST loops."""
+    from busca_tpu_torch.eval.features import ReidFeatureExtractor
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    t_phase = t0 = time.perf_counter()
+    seq = crowd_sequence()
+    frames = [seq.frame(t) for t in range(seq.num_frames)]
+    dets = [seq.detections(t) for t in range(seq.num_frames)]
+    gt = seq.ground_truth()
+    n_drop = sum(o.dropout[1] > o.dropout[0] for o in seq.objects)
+    n_dip = sum(o.score_dip[1] > o.score_dip[0] for o in seq.objects)
+    print(f"crowd: {len(seq.objects)} objects at {FRAME_HW[0]}x"
+          f"{FRAME_HW[1]}, {seq.num_frames} frames, {n_drop} dropouts, "
+          f"{n_dip} score dips; rendered in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    ext = ReidFeatureExtractor(device=device, seed=0)
+    n_params = sum(p.numel() for p in ext.model.parameters())
+    print(f"ReID extractor build (ResNet-50 (3, 4, 6, 3), {CROP_HW}, "
+          f"{ext.feature_dim}-d, {n_params} parameters): "
+          f"{time.perf_counter() - t0:.2f} s")
+    phase_extractor(device, ext, frames, dets)
+
+    busca = {"use_busca": True}
+    # StrongSORT: base vs BUSCA, K1's launches counted over both
+    crop_resize_cuda.launches = 0
+    ss_base, _ = run_feature_tracker("StrongSORT base", "strongsort", None,
+                                     ext, frames, dets, gt, {})
+    _, ss_stats = run_feature_tracker(
+        f"StrongSORT + BUSCA ({engine.config.dtype})", "strongsort", engine,
+        ext, frames, dets, gt, busca)
+    k1_ss = crop_resize_cuda.launches
+    print(f"StrongSORT loop: K1 launches {k1_ss}")
+    check(ss_stats["third_rounds"] >= 1, "StrongSORT ran no third round")
+    check(k1_ss > 0, "the StrongSORT loop never launched K1")
+
+    n = DEEPSORT_FRAMES
+    run_feature_tracker(f"DeepSORT base (first {n} frames)", "deepsort",
+                        None, ext, frames[:n], dets[:n],
+                        {f: gt[f] for f in range(1, n + 1)}, {})
+
+    # GHOST: base vs BUSCA; the card host has no cv2, so GHOST's ECC is set
+    # off explicitly rather than left to fall back to an identity warp
+    ecc_off = {"motion_compensation": False}
+    crop_resize_cuda.launches = 0
+    run_feature_tracker("GHOST base", "ghost", None, ext, frames, dets, gt,
+                        ecc_off)
+    _, gh_stats = run_feature_tracker(
+        f"GHOST + BUSCA ({engine.config.dtype})", "ghost", engine, ext,
+        frames, dets, gt, dict(busca, **ecc_off))
+    k1_gh = crop_resize_cuda.launches
+    print(f"GHOST loop: K1 launches {k1_gh}; the extractor ran on Kalman "
+          f"candidates in {gh_stats['kalman_feature_calls']} frames")
+    check(gh_stats["third_rounds"] >= 1, "GHOST ran no third round")
+    check(gh_stats["kalman_feature_calls"] >= 1,
+          "GHOST never computed Kalman-candidate features")
+    check(k1_gh > 0, "the GHOST loop never launched K1")
+
+    phase_link_and_smooth(device, result_rows(ss_base))
+    profile_third_round_frame("StrongSORT + BUSCA", "strongsort", engine,
+                              ext, frames, dets, ss_stats, busca)
+    profile_third_round_frame("GHOST + BUSCA", "ghost", engine, ext, frames,
+                              dets, gh_stats, dict(busca, **ecc_off))
+    print(f"phase 8: {time.perf_counter() - t_phase:.2f} s")
+    return k1_ss, k1_gh
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1358,6 +1765,7 @@ def main() -> int:
             device, engine16, k2["bf16"]["kernel_ms"], "bfloat16", tc32)
         del tc32
         k1_yolox = phase_yolox(device, engine16)
+        k1_ss, k1_ghost = phase_feature_trackers(device, engine16)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1369,7 +1777,9 @@ def main() -> int:
     k1["launches_by_path"] = {"byte_synthetic": k1_byte,
                               "transcenter_loop": k1_tc,
                               "transcenter_bf16_loop": k1_tc16,
-                              "yolox_loop": k1_yolox}
+                              "yolox_loop": k1_yolox,
+                              "strongsort_loop": k1_ss,
+                              "ghost_loop": k1_ghost}
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
