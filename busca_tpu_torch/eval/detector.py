@@ -1,16 +1,21 @@
 """Live detector-in-the-loop evaluation: frame -> detector -> NMS -> tracker
-(port of ``busca_tpu.eval.detector``: YOLOX and TransCenter).
+(port of ``busca_tpu.eval.detector``: YOLOX, TransCenter and CenterTrack).
 
 Per frame:
 
 1. preproc: aspect-preserving letterbox resize through the crop op (kernel
    K1 on the card) onto a canvas of the test size, filled with 114 for
-   YOLOX and 0 for TransCenter; BGR -> RGB and ImageNet normalization;
+   YOLOX and 0 for TransCenter and CenterTrack; ImageNet normalization
+   after BGR -> RGB (YOLOX, TransCenter), CenterNet's BGR statistics
+   (CenterTrack);
 2. the detector forward: YOLOX (CSPDarknet + PAFPN + decoupled head, grid
-   decode) or TransCenter over the current and the previous canvas with the
+   decode), TransCenter over the current and the previous canvas with the
    tracker's positions as a prior heatmap (kernel K2 in every decoder
-   attention on the card);
-3. score filter and static-size NMS on the device;
+   attention on the card), or CenterTrack (DLA-34 with DCNv2 upsampling)
+   over the current and the previous canvas and a prior heatmap rendered
+   from the tracker's dict tracks;
+3. score filter and static-size NMS on the device (CenterTrack: the peak
+   decode and a score filter, no NMS, as the reference);
 4. the uint8 BGR canvas handed to the tracker for BUSCA crops (the
    reference's ``bboxes /= scale`` + crops at ``bboxes * scale`` scheme).
 
@@ -19,11 +24,13 @@ and an upload on a copy stream), ``detect_async`` (the step, enqueued
 without any host sync, and non-blocking copies of its fixed-size result
 rows into pinned buffers) and ``wait``, so that
 :func:`track_frames_with_detector` enqueues frame t+1 before it waits for
-frame t.  Its canvas stays on the card for the tracker's crops.
-TransCenter feeds the tracker's state back and cannot pipeline.
+frame t.  Its canvas stays on the card for the tracker's crops, as
+CenterTrack's does.  TransCenter and CenterTrack feed the tracker's state
+back and cannot pipeline.
 
-Lockstep batch-B (``_make_batch_step``, ``track_sequences_lockstep``) is
-ROADMAP item 21; CenterTrack is item 18.
+Lockstep batch-B (``_make_batch_step``, ``track_sequences_lockstep``) and
+CenterTrack's serving view (``CenterTrackRunnerDetector``) are ROADMAP
+items 21 and 22.
 """
 
 from __future__ import annotations
@@ -47,6 +54,10 @@ INV_255 = float(np.float32(1.0) / np.float32(255.0))
 NMS_IOU = 0.7
 # YOLOX's letterbox fill (the reference preproc, exps/*.py ``preproc``)
 PAD_VALUE = 114
+# CenterNet/CenterTrack input statistics, in BGR channel order as the
+# published code applies them (no channel flip after cv2.imread)
+CENTERNET_MEAN_BGR = (0.408, 0.447, 0.470)
+CENTERNET_STD_BGR = (0.289, 0.274, 0.278)
 
 
 @dataclasses.dataclass
@@ -109,13 +120,15 @@ def letterbox(frame: torch.Tensor, test_size: Tuple[int, int], fill: int,
 
 
 def normalize_canvas(canvas: torch.Tensor, mean: torch.Tensor,
-                     std: torch.Tensor) -> torch.Tensor:
-    """uint8 BGR canvas ``[..., 3]`` -> float32 RGB ``(x / 255 - mean) /
-    std``, dividing by 255 as XLA does (times the float32 reciprocal).  The
-    canvas holds integers, so this equals the reference's normalization of
-    its float canvas."""
-    x = canvas.to(torch.float32).flip(-1) * INV_255
-    return (x - mean) / std
+                     std: torch.Tensor, to_rgb: bool = True) -> torch.Tensor:
+    """uint8 BGR canvas ``[..., 3]`` -> float32 ``(x / 255 - mean) / std``,
+    in RGB order (``to_rgb``) or BGR, dividing by 255 as XLA does (times the
+    float32 reciprocal).  The canvas holds integers, so this equals the
+    reference's normalization of its float canvas."""
+    x = canvas.to(torch.float32)
+    if to_rgb:
+        x = x.flip(-1)
+    return (x * INV_255 - mean) / std
 
 
 @dataclasses.dataclass
@@ -182,7 +195,7 @@ class YoloxDetector:
         if state_dict is None:
             model.init_weights(torch.Generator().manual_seed(seed))
         else:
-            load_yolox_state_dict(model, state_dict)
+            load_published_state_dict(model, state_dict, "YOLOX")
         self.model = model.to(self.device).eval()
         self.test_size = tuple(test_size)
         self.conf_thresh = float(conf_thresh)
@@ -217,13 +230,7 @@ class YoloxDetector:
 
                 state = yolox_state_dict_from_flax(load_params_npz(ckpt_path))
             else:
-                state = torch.load(ckpt_path, map_location="cpu",
-                                   weights_only=False)
-                for envelope in ("model_state_dict", "state_dict", "model"):
-                    if isinstance(state.get(envelope), dict):
-                        state = state[envelope]
-                state = {(k[len("module."):] if k.startswith("module.")
-                          else k): v for k, v in state.items()}
+                state = read_pth_state_dict(ckpt_path)
         return cls(config, state, **kw)
 
     # ------------------------------------------------------------ device --
@@ -339,16 +346,31 @@ class YoloxDetector:
         return self.wait(self.detect_async(frame))
 
 
-def load_yolox_state_dict(model: torch.nn.Module, state_dict):
-    """Copy an official-layout YOLOX state dict into ``model``.  Every
-    parameter and running statistic must be present (``num_batches_tracked``
-    may be absent); unknown keys raise."""
+def read_pth_state_dict(path: str) -> dict:
+    """A ``.pth`` checkpoint's state dict: the training envelopes
+    (``model_state_dict``, CenterNet's ``state_dict``, YOLOX's ``model``)
+    unwrapped and DataParallel's ``module.`` prefixes stripped."""
+    state = torch.load(path, map_location="cpu", weights_only=False)
+    for envelope in ("model_state_dict", "state_dict", "model"):
+        if isinstance(state.get(envelope), dict):
+            state = state[envelope]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state.items()}
+
+
+def load_published_state_dict(model: torch.nn.Module, state_dict,
+                              name: str):
+    """Copy a state dict in a detector's published key layout (YOLOX's
+    official one, CenterTrack's DLASeg) into ``model``.  Every parameter and
+    running statistic must be present (``num_batches_tracked`` may be
+    absent: busca_tpu's variables have none); unknown keys raise, naming
+    the detector."""
     state_dict = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
                   else v for k, v in state_dict.items()}
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:
-        raise KeyError(f"YOLOX checkpoint mismatch: missing {missing}, "
+        raise KeyError(f"{name} checkpoint mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
     return model
 
@@ -638,3 +660,251 @@ def track_frames_with_detector(
         name, len(results), results, dt,
         stage_times={"detector_s": det_s, "tracker_s": trk_s},
     )
+
+
+def gaussian_radius(det_size: Tuple[float, float], min_overlap: float = 0.7):
+    """CenterNet's peak radius from a box size ``(h, w)`` (the published
+    three-case formula of its heatmap rendering)."""
+    h, w = det_size
+    a1 = 1
+    b1 = h + w
+    c1 = w * h * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 - np.sqrt(max(b1**2 - 4 * a1 * c1, 0))) / 2
+    a2 = 4
+    b2 = 2 * (h + w)
+    c2 = (1 - min_overlap) * w * h
+    r2 = (b2 - np.sqrt(max(b2**2 - 4 * a2 * c2, 0))) / 2
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (h + w)
+    c3 = (min_overlap - 1) * w * h
+    r3 = (b3 + np.sqrt(max(b3**2 - 4 * a3 * c3, 0))) / 2
+    return max(0, min(r1, r2, r3))
+
+
+class CenterTrackDetector:
+    """Stateful CenterTrack detector for the per-frame loop.
+
+    Mirrors adapters/CenterTrack/src/lib/detector.py:90-190: keeps the
+    previous frame's canvas (``pre_images``) on the device, renders the
+    prior heatmap from the tracker's current dict tracks at input resolution
+    (``_get_additional_inputs`` with ``pre_hm: true``), resets per video,
+    and returns CenterTrack's dict detections for the ByteTrack-based shim
+    (utils/tracker.py:40-74, ``trackers/centertrack.py``).
+
+    Args:
+      config: :class:`~busca_tpu_torch.models.centertrack.CenterTrackConfig`;
+        None = DLA-34 with exact DCNv2.
+      state_dict: the model's weights in the published DLASeg key layout (a
+        published ``.pth``, or ``centertrack_state_dict_from_flax``); None =
+        random weights from a ``torch.Generator`` seeded with ``seed``.
+      test_size: (H, W) detector input; CenterTrack's MOT17 is (544, 960).
+      device: ``"cuda"`` (default; raises without CUDA) or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        config=None,
+        state_dict=None,
+        test_size: Tuple[int, int] = (544, 960),
+        out_thresh: float = 0.1,
+        device="cuda",
+        seed: int = 0,
+    ):
+        from busca_tpu_torch.models.centertrack import (
+            CenterTrackConfig,
+            CenterTrackNet,
+        )
+        from busca_tpu_torch.utils.device import resolve_device
+
+        self.config = config or CenterTrackConfig()
+        self.device = resolve_device(device)
+        model = CenterTrackNet(self.config)
+        if state_dict is None:
+            model.init_weights(torch.Generator().manual_seed(seed))
+        else:
+            load_published_state_dict(model, state_dict, "CenterTrack")
+        self.model = model.to(self.device).eval()
+        self.test_size = tuple(test_size)
+        self.out_thresh = float(out_thresh)
+        self._mean = torch.tensor(CENTERNET_MEAN_BGR, device=self.device)
+        self._std = torch.tensor(CENTERNET_STD_BGR, device=self.device)
+        self._boxes = {}
+        self.reset()
+
+    def reset(self):
+        """Per-video reset (detector.py:90-104, 'Initialize tracking!')."""
+        self._pre_canvas = None
+
+    def prep(self, frame: torch.Tensor) -> Tuple[torch.Tensor, float]:
+        """uint8 BGR frame ``[H, W, 3]`` on the device -> the uint8 BGR
+        letterbox canvas ``[test_h, test_w, 3]`` (zero fill, the frame at
+        the top left) and its scale."""
+        return letterbox(frame, self.test_size, 0, self._boxes)
+
+    def _render_pre_hm(self, tracks, r: float) -> np.ndarray:
+        """The prior heatmap ``[test_h, test_w, 1]`` at input resolution
+        from dict tracks (detector.py:109-110, ``_get_additional_inputs``):
+        one CenterNet-radius Gaussian per track, on the host."""
+        th, tw = self.test_size
+        out = np.zeros((th, tw, 1), np.float32)
+        for t in tracks or []:
+            x1, y1, x2, y2 = np.asarray(t["bbox"], np.float64) * r
+            w, h = x2 - x1, y2 - y1
+            if w <= 0 or h <= 0:
+                continue
+            radius = max(int(gaussian_radius((np.ceil(h), np.ceil(w)))), 0)
+            sigma = max((2 * radius + 1) / 6.0, 0.5)
+            cx = np.clip((x1 + x2) / 2.0, 0, tw - 1)
+            cy = np.clip((y1 + y2) / 2.0, 0, th - 1)
+            y0, y1_ = int(max(cy - 2 * radius, 0)), int(
+                min(cy + 2 * radius + 1, th))
+            x0, x1_ = int(max(cx - 2 * radius, 0)), int(
+                min(cx + 2 * radius + 1, tw))
+            if y0 >= y1_ or x0 >= x1_:
+                continue
+            ys, xs = np.mgrid[y0:y1_, x0:x1_]
+            g = np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2)
+                       / (2.0 * sigma**2)).astype(np.float32)
+            out[y0:y1_, x0:x1_, 0] = np.maximum(out[y0:y1_, x0:x1_, 0], g)
+        return out
+
+    @torch.no_grad()
+    def step(self, canvas: torch.Tensor, pre_canvas: torch.Tensor,
+             pre_hm: torch.Tensor):
+        """The device step: normalization, forward, sigmoid with clip and
+        the peak decode.  ``pre_hm`` is ``[test_h, test_w, 1]``.  Returns
+        ``(boxes [K, 4], scores [K], clses [K], tracking [K, 2])`` in the
+        input plane."""
+        from busca_tpu_torch.models.transcenter import generic_decode
+
+        cfg = self.config
+
+        def norm(c_u8):  # BGR, as the published code
+            return normalize_canvas(c_u8, self._mean, self._std,
+                                    to_rgb=False).permute(2, 0, 1)[None]
+
+        out = self.model(norm(canvas), norm(pre_canvas),
+                         pre_hm.permute(2, 0, 1)[None])
+        out = {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+        out["hm"] = torch.clamp(torch.sigmoid(out["hm"]), 1e-4, 1 - 1e-4)
+        decoded = generic_decode(out, k=cfg.K)
+        down = cfg.down_ratio
+        return (decoded["bboxes"][0] * down, decoded["scores"][0],
+                decoded["clses"][0], decoded["tracking"][0] * down)
+
+    def detect(self, frame_bgr, tracks=None):
+        """One uint8 BGR frame (original resolution; a host array or a
+        tensor) -> ``(results, canvas, scale)``: CenterTrack dict
+        detections in original coordinates, the uint8 BGR canvas on the
+        device (the tracker's BUSCA crops read it there) and its scale.
+        ``tracks``: the adapter's current dict tracks (``adapter.tracks``),
+        rendered into the prior heatmap."""
+        frame = torch.as_tensor(np.asarray(frame_bgr)).to(self.device)
+        canvas, r = self.prep(frame)
+        if self._pre_canvas is None:
+            self._pre_canvas = canvas
+        pre_hm = torch.from_numpy(self._render_pre_hm(tracks, r)).to(
+            self.device)
+        decoded = self.step(canvas, self._pre_canvas, pre_hm)
+        self._pre_canvas = canvas
+        return self.results(decoded, r), canvas, r
+
+    def results(self, decoded, r: float):
+        """:meth:`step`'s outputs -> CenterTrack dict detections above
+        ``out_thresh`` in original coordinates (``/ r``).  The four outputs
+        come to the host in one copy: float32 holds each exactly (a bf16
+        model's scores and displacements, the class indices)."""
+        packed = torch.cat([v.to(torch.float32).reshape(len(v), -1)
+                            for v in decoded], dim=1).cpu().numpy()
+        boxes = packed[:, :4] / r  # back to original coordinates
+        scores, clses = packed[:, 4], packed[:, 5]
+        tracking = packed[:, 6:8] / r
+        results = []
+        for b, s, c, tr in zip(boxes, scores, clses, tracking):
+            if s < self.out_thresh:
+                continue
+            results.append({
+                "bbox": b.astype(np.float64),
+                "score": float(s),
+                "class": int(c) + 1,
+                "tracking": tr.astype(np.float64),
+                "ct": [(b[0] + b[2]) / 2.0, (b[1] + b[3]) / 2.0],
+            })
+        return results
+
+
+def build_centertrack_detector(arch="dla34", sampling="deformable",
+                               ckpt=None, test_size=(544, 960),
+                               out_thresh=0.1, device="cuda",
+                               seed: int = 0) -> CenterTrackDetector:
+    """A CenterTrack detector of ``arch`` (``dla34``, ``mobilenet`` or
+    ``tiny``) with the decoder's DCN in ``sampling``.
+
+    ``ckpt``: busca_tpu ``.npz`` weights (any sampling; converted with
+    ``centertrack_state_dict_from_flax``) or a published DLA-34 ``.pth``,
+    which loads as it is (the port's keys are the published ones) and needs
+    the free-form offsets of ``deformable`` or ``windowed``.  None = random
+    weights from ``seed``.  Raises ``ValueError`` on a ``.pth`` with
+    ``sampling="local"`` (the CLI maps it to ``parser.error``).
+    """
+    from busca_tpu_torch.models.centertrack import CenterTrackConfig
+
+    state = None
+    if ckpt:
+        if ckpt.endswith(".npz"):
+            from busca_tpu_torch.models.checkpoint import load_params_npz
+            from busca_tpu_torch.models.convert import (
+                centertrack_state_dict_from_flax,
+            )
+
+            state = centertrack_state_dict_from_flax(load_params_npz(ckpt))
+        else:
+            if sampling == "local":
+                raise ValueError(
+                    "converted CenterTrack .pth checkpoints carry "
+                    "free-form DCN offsets; use sampling 'deformable' "
+                    "(exact) or 'windowed' (gather-free, exact within "
+                    "the +-dcn_window clamp)")
+            state = read_pth_state_dict(ckpt)
+    if arch == "tiny":
+        cfg = CenterTrackConfig.tiny(sampling=sampling)
+    elif arch == "mobilenet":
+        cfg = CenterTrackConfig(backbone="mobilenet", sampling=sampling)
+    else:
+        cfg = CenterTrackConfig(sampling=sampling)
+    return CenterTrackDetector(cfg, state, test_size=test_size,
+                               out_thresh=out_thresh, device=device,
+                               seed=seed)
+
+
+def track_frames_centertrack(detector: CenterTrackDetector, adapter, frames,
+                             name: str = "seq"):
+    """CenterTrack's per-frame loop: detector dicts -> ``adapter.step`` with
+    the device canvas for BUSCA crops (detector.py:143-156), the prior
+    heatmap from the adapter's current tracks.  Returns a
+    :class:`~busca_tpu_torch.eval.runner.SequenceResult` whose
+    ``stage_times`` split the wall time into ``detector_s`` and
+    ``tracker_s``."""
+    from busca_tpu_torch.eval.runner import SequenceResult
+
+    results = []
+    det_s = trk_s = 0.0
+    t0 = time.perf_counter()
+    for idx, frame in enumerate(frames):
+        t_det = time.perf_counter()
+        dets, det_image, r = detector.detect(frame, tracks=adapter.tracks)
+        t_trk = time.perf_counter()
+        online = adapter.step(dets, det_image, scale=r)
+        trk_s += time.perf_counter() - t_trk
+        det_s += t_trk - t_det
+        tlwhs, ids, confs = [], [], []
+        for d in online:
+            b = d["bbox"]
+            tlwhs.append(np.array([b[0], b[1], b[2] - b[0], b[3] - b[1]]))
+            ids.append(d["tracking_id"])
+            confs.append(d["score"])
+        results.append((idx + 1, tlwhs, ids, confs))
+    dt = time.perf_counter() - t0
+    return SequenceResult(name, len(results), results, dt,
+                          stage_times={"detector_s": det_s,
+                                       "tracker_s": trk_s})

@@ -2,8 +2,10 @@
 ``busca_tpu.eval.run``).
 
 Trackers (``--tracker``): ``byte``, ``transcenter`` (BYTE with the
-detector-feedback export), ``strongsort``, ``deepsort`` (StrongSORT with its
-upgrades off, the reference's vanilla DeepSORT alternate) and ``ghost``.
+detector-feedback export), ``centertrack`` (BYTE behind CenterTrack's dict
+IO), ``strongsort``, ``deepsort`` (StrongSORT with its upgrades off, the
+reference's vanilla DeepSORT alternate), ``ghost``, and the reference
+evaluator's ``sort`` and ``motdt`` alternates.
 
 Modes:
 - ``--synthetic``: the built-in dropout sequence; base vs BUSCA A/B.
@@ -12,13 +14,16 @@ Modes:
   - with ``--detector``: the live detector-in-the-loop path (reference
     mot_evaluator.py:131-235): YOLOX (tiny, s, m, l, x) or TransCenter per
     frame, NMS on the device, the tracker fed with the detections and the
-    device canvas;
+    device canvas; or CenterTrack (``--tracker centertrack``, DLA-34,
+    MobileNetV2 or tiny by ``--centertrack-arch``, its DCN by
+    ``--centertrack-sampling``) with the tracker's dict tracks fed back as
+    its prior heatmap;
   - ``--tracker strongsort --npy-det DIR``: StrongSORT's cached artifacts
     (deep_sort_app.py): detections with features from ``<seq>.npy``, the
     ``--min-confidence`` filter, optional ``--ecc-json`` camera warps;
   - otherwise the cached-detection path: the sequence's ``det/det.txt``.
 
-  StrongSORT, DeepSORT and GHOST take ReID features from a
+  StrongSORT, DeepSORT, GHOST and MOTDT take ReID features from a
   ``--reid-ckpt`` extractor run on each detection's crop (without one, a
   distinct placeholder per detection).  MOTChallenge result txts go under
   ``--output-dir``, optionally linked (``--aflink NPZ``) and smoothed
@@ -38,6 +43,8 @@ Example::
         --use-busca --aflink aflink.npz --gsi
     python -m busca_tpu_torch.eval.run --mot-dir seq --detector yolox-tiny \\
         --test-h 128 --test-w 224 --device cpu
+    python -m busca_tpu_torch.eval.run --mot-dir MOT17-05 \\
+        --detector centertrack --tracker centertrack --use-busca
 
 Without ``--busca-config`` the model is ``BuscaConfig()`` (ResNet-50,
 d=512, 4 layers, 4 heads, ff 1024); without ``--busca-ckpt`` its weights are
@@ -116,26 +123,21 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
 
 # trackers that store per-track appearance-crop memory and take a memory
 # cap (trackers/base.py compact_mem_lists)
-MEM_CAP_TRACKERS = ("byte", "bytetrack", "transcenter", "strongsort",
-                    "deepsort", "ghost")
+MEM_CAP_TRACKERS = ("byte", "bytetrack", "centertrack", "transcenter",
+                    "strongsort", "deepsort", "ghost")
 
 
 def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
                  feature_extractor=None):
     """A tracker for ``name``: ``byte`` (``bytetrack``), ``transcenter``
-    (BYTE with the detector-feedback export), ``strongsort``, ``deepsort``
-    (StrongSORT with the vanilla DeepSORT defaults) or ``ghost``.  Keys of
-    ``tracker_kwargs`` that the tracker's config does not know are
+    (BYTE with the detector-feedback export), ``centertrack`` (BYTE behind
+    CenterTrack's dict IO), ``strongsort``, ``deepsort`` (StrongSORT with
+    the vanilla DeepSORT defaults), ``ghost``, ``sort`` or ``motdt``.  Keys
+    of ``tracker_kwargs`` that the tracker's config does not know are
     ignored.  ``feature_extractor`` gives GHOST fresh features for its
     Kalman candidates (GHOST src/tracker.py:684-708); busca_tpu's
     ``make_tracker`` takes none, so its GHOST reuses the tracks' features
     there."""
-    if name in ("sort", "motdt"):
-        raise ValueError(f"tracker {name!r} is not ported yet (ROADMAP.md "
-                         "Queue 1 item 17)")
-    if name == "centertrack":
-        raise ValueError("tracker 'centertrack' is not ported yet "
-                         "(ROADMAP.md Queue 1 item 18)")
     if (tracker_kwargs.get("mem_cap") is not None
             and name not in MEM_CAP_TRACKERS):
         raise ValueError(f"mem_cap only applies to trackers that store "
@@ -146,11 +148,31 @@ def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
         kw = dict(defaults)
         kw.update({k: v for k, v in tracker_kwargs.items() if k in known})
         cfg = cls(**kw)
-        cfg.crop_hw = crop_hw
+        if "crop_hw" in known:
+            cfg.crop_hw = crop_hw
         return cfg
 
-    if name in ("byte", "bytetrack", "transcenter"):
+    if name == "motdt":
+        from busca_tpu_torch.trackers.motdt import MotdtConfig, MotdtTracker
+
+        # the reference's evaluate_motdt alternate:
+        # OnlineTracker(min_cls_score=track_thresh) (mot_evaluator.py:553)
+        cfg = config(MotdtConfig)
+        if "track_thresh" in tracker_kwargs:
+            cfg.min_cls_score = tracker_kwargs["track_thresh"]
+        return MotdtTracker(cfg)
+    if name == "sort":
+        from busca_tpu_torch.trackers.sort import SortConfig, SortTracker
+
+        # the reference's evaluate_sort alternate: Sort(track_thresh)
+        # (mot_evaluator.py:307-308,322-323); SORT has no BUSCA hook
+        cfg = config(SortConfig)
+        if "track_thresh" in tracker_kwargs:
+            cfg.det_thresh = tracker_kwargs["track_thresh"]
+        return SortTracker(cfg)
+    if name in ("byte", "bytetrack", "transcenter", "centertrack"):
         from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
+        from busca_tpu_torch.trackers.centertrack import CenterTrackAdapter
         from busca_tpu_torch.trackers.transcenter import (
             TransCenterByteTracker,
         )
@@ -158,6 +180,8 @@ def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
         cfg = config(ByteTrackerConfig)
         cfg.use_busca = engine is not None and tracker_kwargs.get(
             "use_busca", True)
+        if name == "centertrack":
+            return CenterTrackAdapter(cfg, engine)
         if name == "transcenter":
             return TransCenterByteTracker(cfg, engine)
         return ByteTracker(cfg, engine)
@@ -186,8 +210,9 @@ def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
 
 
 class FeatureShim:
-    """Adapt the feature-consuming trackers (StrongSORT, GHOST) to the
-    runner's ``update(boxes, scores, scale, frame)`` protocol.
+    """Adapt the feature-consuming trackers (StrongSORT, DeepSORT, GHOST,
+    MOTDT) to the runner's ``update(boxes, scores, scale, frame)``
+    protocol.
 
     Features come from a
     :class:`~busca_tpu_torch.eval.features.ReidFeatureExtractor` when given
@@ -225,23 +250,51 @@ class FeatureShim:
         return self.trk.update(boxes, scores, feats, frame)
 
 
+class CenterTrackShim:
+    """Adapt the dict-IO :class:`~busca_tpu_torch.trackers.centertrack.
+    CenterTrackAdapter` to the runner's ``update(boxes, scores, scale,
+    frame)`` protocol."""
+
+    def __init__(self, trk):
+        self.trk = trk
+
+    def update(self, boxes, scores, scale, frame):
+        dicts = [{"bbox": b, "score": s, "class": 1}
+                 for b, s in zip(boxes, scores)]
+        return [_DictTrack(d) for d in self.trk.step(dicts, frame, scale)]
+
+
+class _DictTrack:
+    """A dict track seen as a runner track (``tlwh``, ``track_id``,
+    ``score``)."""
+
+    def __init__(self, d: dict):
+        b = d["bbox"]
+        self.tlwh = np.array([b[0], b[1], b[2] - b[0], b[3] - b[1]])
+        self.track_id = d["tracking_id"]
+        self.score = d["score"]
+
+
 def shim_for_runner(name: str, tracker, feature_extractor=None,
                     crop_hw=(384, 128)):
     """Wrap a tracker for the runner protocol where its native IO differs:
     StrongSORT and DeepSORT take features and are predicted before each
-    update; GHOST takes features."""
+    update; GHOST and MOTDT take features; CenterTrack's adapter takes
+    dicts."""
     if name in ("strongsort", "deepsort"):
         return FeatureShim(tracker, feature_extractor, crop_hw,
                            call_predict=True)
-    if name == "ghost":
+    if name in ("ghost", "motdt"):
         return FeatureShim(tracker, feature_extractor, crop_hw)
+    if name == "centertrack":
+        return CenterTrackShim(tracker)
     return tracker
 
 
 def run_synthetic(args, engine, tracker_kwargs, seq=None) -> dict:
     """Base vs BUSCA A/B on the synthetic dropout sequence (or ``seq``).
     ``args`` needs ``tracker``, ``num_frames`` and ``crop_hw``.  StrongSORT,
-    DeepSORT and GHOST get a placeholder feature per detection, as in
+    DeepSORT, GHOST and MOTDT get a placeholder feature per detection, as in
     busca_tpu."""
     from busca_tpu_torch.eval.metrics import evaluate_hota
     from busca_tpu_torch.eval.runner import (
@@ -338,13 +391,20 @@ LATER_FLAGS = {
 
 
 def build_detector(args):
-    """The live detector of ``--detector``: a YOLOX size or TransCenter."""
+    """The live detector of ``--detector``: a YOLOX size, TransCenter or
+    CenterTrack."""
     from busca_tpu_torch.eval.detector import (
+        build_centertrack_detector,
         build_transcenter_detector,
         build_yolox_detector,
     )
 
     test_size = (args.test_h, args.test_w)
+    if args.detector == "centertrack":
+        return build_centertrack_detector(
+            arch=args.centertrack_arch, sampling=args.centertrack_sampling,
+            ckpt=args.detector_ckpt, test_size=test_size,
+            out_thresh=args.det_conf, device=args.device, seed=args.seed)
     if args.detector == "transcenter":
         return build_transcenter_detector(
             dataset=args.detector_dataset, ckpt=args.detector_ckpt,
@@ -366,7 +426,7 @@ def seq_tracker_kwargs(args, tracker_kwargs: dict, name: str) -> dict:
     )
 
     seq_kwargs = dict(tracker_kwargs)
-    if args.tracker in ("byte", "transcenter"):
+    if args.tracker in ("byte", "centertrack", "transcenter"):
         seq_kwargs.update(custom_byte_thresholds(
             name, seq_kwargs.get("track_thresh", 0.6),
             seq_kwargs.get("track_buffer", 30),
@@ -419,6 +479,7 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
                 output_file=out_path, max_frames=args.max_frames)
         elif detector is not None:
             from busca_tpu_torch.eval.detector import (
+                track_frames_centertrack,
                 track_frames_with_detector,
             )
             from busca_tpu_torch.eval.loader import sequence_frames
@@ -429,10 +490,15 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
             frames = iter(sequence_frames(info))
             if args.max_frames:
                 frames = itertools.islice(frames, args.max_frames)
-            res = track_frames_with_detector(
-                detector, shim_for_runner(args.tracker, tracker,
-                                          feature_extractor, args.crop_hw),
-                frames, name=info.name)
+            if args.detector == "centertrack":
+                res = track_frames_centertrack(detector, tracker, frames,
+                                               name=info.name)
+            else:
+                res = track_frames_with_detector(
+                    detector, shim_for_runner(args.tracker, tracker,
+                                              feature_extractor,
+                                              args.crop_hw),
+                    frames, name=info.name)
             mot.write_results(out_path, res.results)
         else:
             res = run_mot_sequence(
@@ -510,16 +576,30 @@ def main(argv=None):
                         help="the live detector run per frame; without it "
                              "--mot-dir reads det/det.txt (or --npy-det)")
     parser.add_argument("--detector-ckpt", default=None,
-                        help="official YOLOX .pth or busca_tpu .npz "
-                             "(TransCenter: .npz only); default: random "
-                             "weights from --seed")
+                        help="official YOLOX .pth, published CenterTrack "
+                             "DLA-34 .pth, or busca_tpu .npz (TransCenter: "
+                             ".npz only); default: random weights from "
+                             "--seed")
     parser.add_argument("--detector-dataset", default="mot17",
                         choices=["mot17", "mot20"],
                         help="TransCenter per-dataset preset")
+    parser.add_argument("--centertrack-sampling", default="deformable",
+                        choices=("deformable", "windowed", "local"),
+                        help="CenterTrack's decoder DCN: exact DCNv2 "
+                             "(published checkpoints), windowed dense "
+                             "shifts (gather-free; exact wherever "
+                             "|offset| <= 3), or offsets pinned to the tap "
+                             "grid (from-scratch training)")
+    parser.add_argument("--centertrack-arch", default="dla34",
+                        choices=("dla34", "tiny", "mobilenet"),
+                        help="CenterTrack backbone: dla34 (published "
+                             "checkpoints), mobilenet (the adapter's "
+                             "alternate backbone), tiny (smoke size)")
     parser.add_argument("--test-h", type=int, default=800)
     parser.add_argument("--test-w", type=int, default=1440)
     parser.add_argument("--det-conf", type=float, default=0.01,
-                        help="exp.test_conf (BYTE consumes low-conf dets)")
+                        help="exp.test_conf (BYTE consumes low-conf dets); "
+                             "CenterTrack's and TransCenter's out_thresh")
     parser.add_argument("--det-nms", type=float, default=0.7,
                         help="exp.nmsthre")
     parser.add_argument("--max-frames", type=int, default=None,
@@ -563,12 +643,9 @@ def main(argv=None):
         parser.error("--aflink synthetic trains the link model first, not "
                      "ported yet (ROADMAP.md Queue 1 item 10); pass a "
                      "params .npz")
-    if args.detector == "centertrack" or args.tracker == "centertrack":
-        parser.error("CenterTrack is not ported yet (ROADMAP.md Queue 1 "
-                     "item 18)")
-    if args.tracker in ("sort", "motdt"):
-        parser.error(f"--tracker {args.tracker} is not ported yet "
-                     "(ROADMAP.md Queue 1 item 17)")
+    if args.detector == "centertrack" and args.tracker != "centertrack":
+        parser.error("--detector centertrack needs --tracker centertrack "
+                     "(dict IO)")
 
     from busca_tpu_torch.utils.device import set_card_precision
 

@@ -15,7 +15,9 @@ reference ``.pth`` into a :class:`~busca_tpu_torch.models.busca.BuscaModel`.
 whose port keeps the flax module names, and
 :func:`yolox_state_dict_from_flax` for YOLOX (the inverse of
 ``busca_tpu.models.yolox.convert_yolox_state_dict``: the official YOLOX key
-layout), and :func:`aflink_state_dict_from_flax` for the AFLink link model.
+layout), :func:`aflink_state_dict_from_flax` for the AFLink link model, and
+:func:`centertrack_state_dict_from_flax` for CenterTrack (the inverse of
+``convert_centertrack_state_dict``: the published DLASeg key layout).
 """
 
 from __future__ import annotations
@@ -194,6 +196,62 @@ def yolox_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
                 value, leaf = value.transpose(3, 2, 0, 1), "weight"
             key = ".".join([_yolox_segment(s) for s in path[:-1]] + [leaf])
             out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out
+
+
+# flax leaf names -> torch parameter and buffer names (BN: scale, mean, var)
+_CT_LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
+              "var": "running_var"}
+# DLABase's conv + BN + ReLU layers: the published nn.Sequential indices
+_DLA_STEMS = ("base_layer", "pre_img_layer", "pre_hm_layer", "level0",
+              "level1")
+_DCN_BLOCK = re.compile(r"(proj|node)_\d+")
+
+
+def _centertrack_key(path: Tuple[str, ...]) -> str:
+    """A busca_tpu CenterTrackNet variable path -> the published DLASeg key
+    (the MobileNetV2 backbone keeps busca_tpu's module names)."""
+    *mods, leaf = path
+    out = []
+    for i, m in enumerate(mods):
+        if i == 2 and mods[0] == "base" and mods[1] in _DLA_STEMS:
+            m = {"conv": "0", "bn": "1"}[m]
+        elif (mods[0] == "base" and re.fullmatch(r"level[2-5]", mods[1])
+              and m in ("project_conv", "project_bn")):
+            m = "project." + ("0" if m == "project_conv" else "1")
+        elif i and _DCN_BLOCK.fullmatch(mods[i - 1]):
+            m = "actf.0" if m == "bn" else "conv." + m
+        elif i == 0 and re.fullmatch(r"(hm|reg|wh|tracking)_(conv|out)", m):
+            head, part = m.rsplit("_", 1)
+            m = f"{head}.{'0' if part == 'conv' else '2'}"
+        out.append(m)
+    if _DCN_BLOCK.fullmatch(mods[-1]):
+        out.append("conv")  # the DCN's own weight and bias
+    return ".".join(out + [_CT_LEAVES.get(leaf, leaf)])
+
+
+def centertrack_state_dict_from_flax(variables: dict
+                                     ) -> Dict[str, torch.Tensor]:
+    """busca_tpu CenterTrackNet variables (``{'params': ...,
+    'batch_stats': ...}`` as numpy) -> the port's
+    :class:`~busca_tpu_torch.models.centertrack.CenterTrackNet` state dict,
+    whose DLA keys are the published DLASeg's (the inverse of
+    ``busca_tpu.models.convert.convert_centertrack_state_dict``).
+    Convolution kernels go from HWIO to OIHW (a depthwise ``[3, 3, 1, C]``
+    to ``[C, 1, 3, 3]``); an ``up_i`` kernel, which busca_tpu stores
+    spatially flipped as the equivalent lhs-dilated depthwise convolution,
+    is flipped back into the ``ConvTranspose2d`` weight ``[o, 1, 2f, 2f]``;
+    BN ``scale``/``mean``/``var`` become ``weight``/``running_mean``/
+    ``running_var``."""
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(coll, {})):
+            if value.ndim == 4:  # every convolution kernel, HWIO
+                value = value.transpose(3, 2, 0, 1)
+                if re.fullmatch(r"up_\d+", path[-2]):
+                    value = value[:, :, ::-1, ::-1]
+            out[_centertrack_key(path)] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
     return out
 
 

@@ -52,8 +52,8 @@ Phases (each failure exits non-zero before the result line):
    (``put_frame``/``detect_async``) and serial, which must agree frame by
    frame, with K1's launches read around the pipelined run; the step's time,
    peak memory, profile by kernel kind and float32 operation count; a check
-   that ``detect_async`` enqueues without a host sync and returns before its
-   step ends; then the bf16 YOLOX-X step (the detector's bf16 config): its
+   that ``detect_async`` enqueues without a host sync and returns, behind a
+   stream hold, before the device reaches its step; then the bf16 YOLOX-X step (the detector's bf16 config): its
    time and profile, and its decoded rows held against the float32 step's;
 8. StrongSORT and GHOST with BUSCA in bf16 on a seeded crowd (96 objects
    at 1080x1920, 30 frames, dropouts and score dips): the full-width ReID
@@ -66,7 +66,19 @@ Phases (each failure exits non-zero before the result line):
    around the StrongSORT and GHOST runs; AFLink (seeded random link model)
    and GSI over StrongSORT's rows cut at their gaps, on the card against
    the CPU; one device profile of a frame with a third round per tracker;
-9. the ``kernels`` JSON line, then the result line
+9. CenterTrack with BUSCA in bf16, and the SORT and MOTDT alternates: the
+   full-width CenterTrack detector (DLA-34, 16 exact DCNv2 blocks,
+   544x960, float32, seeded random weights with drawn offset/mask
+   convolutions and a calibrated hm head) against the same model on the
+   CPU at 128x224 on its four maps; the DCN offsets' range; the step's
+   time, float32 operation count, peak memory, profile by kernel kind and
+   the DCN blocks' share, and the step under ``sampling="windowed"`` and
+   ``"local"``; ``track_frames_centertrack`` with ``CenterTrackAdapter`` +
+   BUSCA over the dropout sequence at 1080x1920 for 20 frames, K1's
+   launches and the third rounds counted; MOTDT with the ReID extractor on
+   phase 8's crowd for 10 frames (K1 counted); SORT (host only) on the
+   crowd's detections, its ms/frame and MOTA;
+10. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -151,6 +163,31 @@ FEAT_TOL = 1e-3  # ReID features, card vs CPU, float32 with TF32 off
 CHUNK_CROPS, CHUNK_TOL = 300, 1e-5  # one batch vs its 256 + 44 chunks
 DEEPSORT_FRAMES = 10
 LINK_TOL = 1e-5  # AFLink probabilities, card vs CPU
+# Phase 9: CenterTrack at its published DLA-34 width and 544x960 input,
+# exact DCNv2, float32 (TF32 off), seeded random weights.  The published
+# offset/mask convolutions start at zero, which would sample every DCN tap
+# on the grid; the smoke draws them with CT_OFFSET_GAIN / sqrt(fan_in), so
+# the taps move by fractions of a pixel and more.  The random hm head is
+# rescaled (weights x CT_HM_GAIN) and its bias set so that the first
+# frame's CT_FIRST_DETS-th peak scores CT_OUT_THRESH (10-30 detections per
+# frame pass), the wh bias to CT_WH_BIAS output cells (7.5x19: 30x76 canvas
+# pixels, 60x152 in the 1080p frame) with its and reg's weights x0.1.  As
+# in phase 6, every detection is first-round (> CT_TRACK_THRESH) and starts
+# a track, and a few flicker across the threshold each frame.
+CT_TEST_SIZE = (544, 960)
+CT_LETTERBOX_HW = (540, 960)  # 1080x1920 at exactly 1/2, top left of 544x960
+CT_CPU_SIZE = (128, 224)  # every DLA level divides
+# card vs CPU maps, max |diff| / (1 + |want|), float32 with TF32 off; the
+# smoke also reads the gap with TF32 on, which this bound must catch
+CT_MAP_TOL = 1e-5
+CT_FRAMES = 20
+CT_OFFSET_GAIN = 0.5
+CT_HM_GAIN, CT_FIRST_DETS, CT_WH_BIAS = 3.0, 20, (7.5, 19.0)
+CT_OUT_THRESH, CT_TRACK_THRESH = 0.6, 0.5
+ALT_FRAMES = 10  # MOTDT with the extractor on the crowd's first frames
+# a stream hold lasts three times the host time it covers, and at least
+# this long: a busy host's enqueue must not outrun it
+HOLD_MIN_S = 0.25
 
 
 class PhaseError(RuntimeError):
@@ -179,6 +216,16 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def hold_stream(host_s):
+    """Queue a sleep kernel that holds the current stream for three times
+    ``host_s`` seconds of host work, and at least :data:`HOLD_MIN_S`, at up
+    to 2e9 cycles/s: work the host queues behind it in that time cannot
+    start before the host is done queueing."""
+    import torch
+
+    torch.cuda._sleep(int(max(3 * host_s, HOLD_MIN_S) * 2e9) + 1000)
+
+
 def device_time_ms(fn, reps=20, warmup=3):
     """Mean device ms per call of ``fn`` with the host's time taken out: a
     sleep kernel holds the stream while the host queues the ``reps`` calls,
@@ -198,8 +245,7 @@ def device_time_ms(fn, reps=20, warmup=3):
     wall_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # hold for three times the calls' wall time, at up to 2e9 cycles/s
-    torch.cuda._sleep(int(3 * wall_s * 2e9) + 1000)
+    hold_stream(wall_s)
     start.record()
     for _ in range(reps):
         fn()
@@ -208,6 +254,36 @@ def device_time_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     check(held, "the stream hold ended before the timed calls were queued")
     return start.elapsed_time(end) / reps
+
+
+def device_kernels_ms(fn, reps=3, warmup=True):
+    """Mean device ms per call of ``fn`` for each kernel name
+    (torch.profiler's CUDA events): a step's device work without the host's
+    dispatch gaps.  ``warmup=False`` profiles the first call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    return by_name
+
+
+def device_busy_ms(fn, reps=3):
+    """Mean device time per call of ``fn`` summed over its kernels
+    (:func:`device_kernels_ms`), for steps of more kernels than
+    :func:`device_time_ms` can queue behind its hold."""
+    return sum(device_kernels_ms(fn, reps).values())
 
 
 def smoke_boxes(rng, n, h, w):
@@ -406,7 +482,8 @@ def phase_k1(device):
 
 def phase_k1_letterbox(device, out_hw, label):
     """K1 at a detector's letterbox shape: one full-frame box, 1080x1920 ->
-    ``out_hw`` (612x1088 for TransCenter, 800x1422 for YOLOX), quantized,
+    ``out_hw`` (612x1088 for TransCenter, 800x1422 for YOLOX, 540x960 for
+    CenterTrack: an exact 1/2, every sample at a .5 fraction), quantized,
     not normalized."""
     frame, boxes_np, boxes, scratch, out = k1_case(
         device, 3, lambda rng, h, w: [[0.0, 0.0, float(w), float(h)]],
@@ -415,6 +492,30 @@ def phase_k1_letterbox(device, out_hw, label):
                      f"{out_hw}", frame, boxes, scratch, out,
                      K1_MAIN_KW, timed=True)
     report_k1(f"{label} letterbox", result, FRAME_HW, boxes_np, out)
+    return result
+
+
+def canvas_crop_boxes(rng, h, w):
+    """:func:`smoke_boxes` of a 1080x1920 frame at the scale of its
+    ``h`` x ``w`` letterbox canvas, as BUSCA's boxes are on CenterTrack's
+    canvas: the same mix inside, across the edges, outside and degenerate,
+    some reaching the canvas's fill rows."""
+    import numpy as np
+
+    r = min(h / FRAME_HW[0], w / FRAME_HW[1])
+    return (np.asarray(smoke_boxes(rng, N_BOXES, *FRAME_HW)) * r).tolist()
+
+
+def phase_k1_canvas_crops(device):
+    """K1 at CenterTrack's BUSCA crops: N_BOXES boxes -> CROP_HW from the
+    uint8 544x960 canvas, exact against the plain version."""
+    frame, boxes_np, boxes, scratch, out = k1_case(
+        device, 5, canvas_crop_boxes, CROP_HW, frame_hw=CT_TEST_SIZE)
+    result = hold_k1(f"K1 CenterTrack crops {CT_TEST_SIZE} -> {CROP_HW}, "
+                     f"{len(boxes_np)} boxes", frame, boxes, scratch, out,
+                     K1_MAIN_KW, timed=True)
+    report_k1("CenterTrack canvas crops", result, CT_TEST_SIZE, boxes_np,
+              out)
     return result
 
 
@@ -809,39 +910,29 @@ KERNEL_KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("softmax", ("softmax",)),
     ("layer norm", ("layer_norm", "layernorm")),
     ("sort", ("sort", "radix")),
+    ("gather (index_select)", ("index_select", "indexselect",
+                               "index_elementwise", "gather")),
     ("reduction", ("reduce",)),
     ("elementwise", ("elementwise", "unrolled")),
 )
 
 
 def profile_step(step, step_ms, reps=3, label="detector step",
-                 warmup=True):
+                 warmup=True, top=0):
     """Device time of ``reps`` calls of ``step`` by kernel kind
     (torch.profiler), and its idle share of ``step_ms``, the step's time
     measured without the profiler (whose own overhead stretches the
     profiled wall time).  ``warmup=False`` profiles the first call (a
-    stateful step, such as a tracker's update, runs once).  Returns the
-    device ms by kind."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    if warmup:
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
+    stateful step, such as a tracker's update, runs once); ``top`` prints
+    that many kernels with the most device time.  Returns the device ms by
+    kind."""
     by_kind = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.lower()
+    by_name = device_kernels_ms(step, reps, warmup)
+    for name, ms in by_name.items():
+        low = name.lower()
         kind = next((k for k, keys in KERNEL_KINDS
-                     if any(key in name for key in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + \
-            e.time_range.elapsed_us() / 1e3 / reps
+                     if any(key in low for key in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
     busy = sum(by_kind.values())
     if not busy:
         print(f"{label} profile: the profiler recorded no device time "
@@ -853,6 +944,8 @@ def profile_step(step, step_ms, reps=3, label="detector step",
     print(f"{label} profile (mean of {reps}): device busy "
           f"{busy:.2f} ms of the {step_ms:.2f} ms step, idle "
           f"{100 * (1 - busy / step_ms):.1f}%; {parts}")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{label} profile: {ms:.3f} ms {name[:110]}")
     up = by_kind.get("upsample", 0.0)
     if up:
         print(f"{label} profile: upsample {up:.2f} ms "
@@ -1185,20 +1278,32 @@ def phase_yolox(device, engine):
           + ", ".join(f"{th}: {int((top > th).sum())}"
                       for th in (0.1, 0.3, 0.5, 0.6, 0.7, 0.8, 0.9)))
 
-    # the enqueued step: no host sync, and back before the device is done
+    # the enqueued step: no host sync, and back before the device reaches
+    # it.  The stream is held behind a sleep kernel, so that a host that
+    # queues slower than the card runs cannot end the step before the check.
+    t0 = time.perf_counter()
     det.detect(frames[1])  # warm: K1 built, letterbox box cached
     torch.cuda.synchronize()
+    detect_s = time.perf_counter() - t0
+    hold_stream(detect_s)
+    held = torch.cuda.Event()
+    held.record()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        t0 = time.perf_counter()
         handle = det.detect_async(det.put_frame(frames[1]))
-        returned_early = (handle.done is not None
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        returned_early = (not held.query() and handle.done is not None
                           and not handle.done.query())
     finally:
         torch.cuda.set_sync_debug_mode(0)
     det.wait(handle)
     print(f"YOLOX detect_async under set_sync_debug_mode('error'): no host "
-          f"sync; returned before its step ended: {returned_early}")
-    check(returned_early, "detect_async waited for its step")
+          f"sync; queued in {enqueue_ms:.2f} ms behind a stream hold of "
+          f"{max(3 * detect_s, HOLD_MIN_S) * 1e3:.1f} ms (a synchronized "
+          f"detect(): {detect_s * 1e3:.2f} ms); returned before the device "
+          f"reached its step: {returned_early}")
+    check(returned_early, "detect_async waited for the device")
 
     # CMC off: the card host has no cv2
     kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
@@ -1659,7 +1764,8 @@ def profile_third_round_frame(label, name, engine, ext, frames, dets, stats,
 def phase_feature_trackers(device, engine):
     """Phase 8: StrongSORT and GHOST with BUSCA, and DeepSORT, on the crowd,
     with the full-width ReID extractor; AFLink and GSI over StrongSORT's
-    rows.  Returns K1's launches on the StrongSORT and GHOST loops."""
+    rows.  Returns K1's launches on the StrongSORT and GHOST loops, and the
+    extractor with the crowd's frames, detections and gt for phase 9."""
     from busca_tpu_torch.eval.features import ReidFeatureExtractor
     from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
 
@@ -1723,7 +1829,532 @@ def phase_feature_trackers(device, engine):
     profile_third_round_frame("GHOST + BUSCA", "ghost", engine, ext, frames,
                               dets, gh_stats, dict(busca, **ecc_off))
     print(f"phase 8: {time.perf_counter() - t_phase:.2f} s")
-    return k1_ss, k1_gh
+    return k1_ss, k1_gh, (ext, frames, dets, gt)
+
+
+def ct_flops(model, args):
+    """float32 operations of one CenterTrack forward on ``args``: its
+    convolutions (:func:`conv_flops`'s count: the offset/mask convolutions
+    and the heads too), the DCN contractions (2 * 9 * Cin * Cout per output
+    pixel) and the grouped upsamples (2 * k^2 per input element).  Returns
+    ``(total, dcn)``."""
+    import torch
+
+    from busca_tpu_torch.models.centertrack import DCN, UpConv
+
+    counts = {"conv": 0, "dcn": 0, "up": 0}
+
+    def conv(mod, _inp, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1]
+        counts["conv"] += (2 * mod.in_channels // mod.groups * k
+                           * out.shape[1] * out.shape[2] * out.shape[3])
+
+    def dcn(mod, inp, out):
+        counts["dcn"] += (2 * 9 * inp[0].shape[1] * out.shape[1]
+                          * out.shape[2] * out.shape[3])
+
+    def up(mod, inp, _out):
+        counts["up"] += 2 * mod.kernel_size[0] ** 2 * inp[0].numel()
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            hooks.append(m.register_forward_hook(conv))
+        elif isinstance(m, DCN):
+            hooks.append(m.register_forward_hook(dcn))
+        elif isinstance(m, UpConv):
+            hooks.append(m.register_forward_hook(up))
+    with torch.no_grad():
+        model(*args)
+    for h in hooks:
+        h.remove()
+    return sum(counts.values()), counts["dcn"]
+
+
+def ct_random_weights(det, frame):
+    """The smoke's CenterTrack weights (see CT_OFFSET_GAIN): drawn offset/
+    mask convolutions, the hm head rescaled and its bias calibrated on
+    ``frame`` so that CT_FIRST_DETS peaks pass CT_OUT_THRESH, the box heads
+    damped.  Returns the calibrated hm bias."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import normalize_canvas
+    from busca_tpu_torch.models.centertrack import DCN
+
+    model = det.model
+    g = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DCN):
+                w = m.conv_offset_mask.weight
+                fan_in = w[0].numel()
+                w.copy_((torch.randn(w.shape, generator=g) * CT_OFFSET_GAIN
+                         / float(np.sqrt(fan_in))).to(w.device))
+        model.hm[2].weight.mul_(CT_HM_GAIN)
+        for head in (model.wh, model.reg):
+            head[2].weight.mul_(0.1)
+        model.wh[2].bias.copy_(torch.tensor(CT_WH_BIAS))
+        model.hm[2].bias.zero_()
+        canvas, _ = det.prep(torch.as_tensor(frame).to(det.device))
+        x = normalize_canvas(canvas, det._mean, det._std,
+                             to_rgb=False).permute(2, 0, 1)[None]
+        hm = model(x, x, torch.zeros_like(x[:, :1]))["hm"][0, 0].float()
+        # the decode's peaks: 3x3 local maxima, best first
+        peak = torch.nn.functional.max_pool2d(hm[None, None], 3, 1, 1)[0, 0]
+        logits = torch.sort(hm[peak == hm], descending=True)[0]
+        target = float(np.log(CT_OUT_THRESH / (1 - CT_OUT_THRESH)))
+        bias = target - float(logits[CT_FIRST_DETS - 1])
+        model.hm[2].bias.fill_(bias)
+    return bias
+
+
+def ct_offsets_report(det, canvas, pre_hm):
+    """One forward with hooks on every DCN block's offset/mask convolution:
+    the offsets' range, the share of fractional ones, the share of sampled
+    taps outside the map, the masks' range."""
+    import torch
+
+    from busca_tpu_torch.models.centertrack import DCN
+
+    stats = []
+
+    def hook(mod, inp, out):
+        x = inp[0]
+        h, w = x.shape[2], x.shape[3]
+        off = out[:, :18].float()
+        dy, dx = off[:, 0::2], off[:, 1::2]
+        ky = torch.arange(3, device=x.device).repeat_interleave(3) - 1
+        kx = torch.arange(3, device=x.device).repeat(3) - 1
+        gy = torch.arange(h, device=x.device).view(1, 1, h, 1) + \
+            ky.view(1, 9, 1, 1)
+        gx = torch.arange(w, device=x.device).view(1, 1, 1, w) + \
+            kx.view(1, 9, 1, 1)
+        sy, sx = gy + dy, gx + dx
+        outside = (sy <= -1) | (sy >= h) | (sx <= -1) | (sx >= w)
+        frac = off - off.floor()
+        stats.append((float(off.min()), float(off.max()),
+                      float(((frac > 0.01) & (frac < 0.99)).float().mean()),
+                      float(outside.float().mean()),
+                      float(torch.sigmoid(out[:, 18:].float()).min()),
+                      float(torch.sigmoid(out[:, 18:].float()).max())))
+
+    hooks = [m.conv_offset_mask.register_forward_hook(hook)
+             for m in det.model.modules() if isinstance(m, DCN)]
+    det.step(canvas, canvas, pre_hm)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    lo = min(s[0] for s in stats)
+    hi = max(s[1] for s in stats)
+    frac = sum(s[2] for s in stats) / len(stats)
+    out = max(s[3] for s in stats)
+    print(f"CenterTrack DCN offsets over the {len(stats)} blocks: range "
+          f"[{lo:.3f}, {hi:.3f}] px, fractional {100 * frac:.1f}% on "
+          f"average; taps wholly outside the map up to {100 * out:.2f}% "
+          f"of a block's; masks in [{min(s[4] for s in stats):.3f}, "
+          f"{max(s[5] for s in stats):.3f}]")
+    check(len(stats) == 16, f"{len(stats)} DCN blocks, not 16")
+    check(hi - lo > 1.0 and frac > 0.5, "the DCN offsets barely move")
+    check(out > 0, "no DCN tap left the map")
+
+
+def ct_check_against_cpu(det, device):
+    """The float32 model's four maps against the same model on the CPU at
+    CT_CPU_SIZE: max |diff| / (1 + |want|) within CT_MAP_TOL.  Then the gap
+    once more with TF32 on (the card's default, which
+    ``set_card_precision`` turns off), which must exceed CT_MAP_TOL: the
+    bound catches a TF32 leak."""
+    import torch
+
+    from busca_tpu_torch.models.centertrack import CenterTrackNet
+    from busca_tpu_torch.utils.device import set_card_precision
+
+    cpu = CenterTrackNet(det.config)
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         det.model.state_dict().items()})
+    cpu.eval()
+    g = torch.Generator().manual_seed(10)
+    h, w = CT_CPU_SIZE
+    args = (torch.randn((1, 3, h, w), generator=g),
+            torch.randn((1, 3, h, w), generator=g),
+            torch.rand((1, 1, h, w), generator=g))
+    with torch.no_grad():
+        want = cpu(*args)
+
+    def gaps():
+        with torch.no_grad():
+            got = det.model(*(a.to(device) for a in args))
+        torch.cuda.synchronize()
+        out = {}
+        for k in want:
+            check(got[k].shape == want[k].shape, f"map {k} shape")
+            check(bool(torch.isfinite(got[k]).all()), f"map {k} non-finite")
+            diff = (got[k].cpu() - want[k]).abs()
+            out[k] = (float(diff.max()),
+                      float((diff / (1.0 + want[k].abs())).max()))
+        return out
+
+    for k, (diff, err) in gaps().items():
+        print(f"CenterTrack card vs CPU at {h}x{w}, map {k}: max|diff| "
+              f"{diff:.3g}, / (1 + |want|) {err:.3g} (tol {CT_MAP_TOL}); "
+              f"max|want| {float(want[k].abs().max()):.3g}")
+        check(err <= CT_MAP_TOL, f"card and CPU disagree on {k}: {err}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = max(err for _, err in gaps().values())
+    finally:
+        set_card_precision()
+    print(f"CenterTrack card vs CPU with TF32 on: / (1 + |want|) {tf32:.3g} "
+          f"over the four maps (tol {CT_MAP_TOL})")
+    check(tf32 > CT_MAP_TOL, f"TF32's gap {tf32} is within CT_MAP_TOL")
+
+
+def ct_dcn_times(det, canvas, pre_hm, step_dev):
+    """Device times (:func:`device_busy_ms`: the host's dispatch, which
+    swings with the shared host, taken out) of the step's 16 DCN blocks on
+    their captured inputs, beside ``step_dev``, the step's own (from
+    :func:`profile_step`): the blocks whole (offset/mask convolution,
+    gathers and contraction) and the gathers plus contractions alone
+    (``deform_conv2d`` on the blocks' offsets and masks)."""
+    import torch
+
+    from busca_tpu_torch.models.centertrack import DCN
+    from busca_tpu_torch.ops.deform import deform_conv2d
+
+    calls = []
+
+    def hook(mod, inp, _out):
+        x = inp[0]
+        with torch.no_grad():
+            om = mod.conv_offset_mask(x)
+        calls.append((mod, x, om[:, :18], torch.sigmoid(om[:, 18:])))
+
+    hooks = [m.register_forward_hook(hook) for m in det.model.modules()
+             if isinstance(m, DCN)]
+    det.step(canvas, canvas, pre_hm)
+    for h in hooks:
+        h.remove()
+
+    def blocks():
+        with torch.no_grad():
+            for mod, x, _, _ in calls:
+                mod(x)
+
+    def gathers():
+        with torch.no_grad():
+            for mod, x, off, mask in calls:
+                deform_conv2d(x, off, mod.weight, mask, mod.bias)
+
+    block_ms = device_busy_ms(blocks)
+    gather_ms = device_busy_ms(gathers)
+    if not step_dev:
+        print("CenterTrack DCN share: the profiler recorded no device time "
+              "(not measured)")
+        return
+    print(f"CenterTrack step on the device alone: {step_dev:.2f} ms; the 16 "
+          f"DCN blocks {block_ms:.2f} ms ({100 * block_ms / step_dev:.1f}%), "
+          f"of which gathers + contractions {gather_ms:.2f} ms "
+          f"({100 * gather_ms / step_dev:.1f}%)")
+
+
+def ct_sampling_steps(det, canvas, pre_hm, step_dev):
+    """The same weights under ``sampling="windowed"`` and ``"local"``: the
+    step's time back to back and on the device alone, and its maps' max
+    |diff| to the exact DCN's."""
+    import dataclasses
+
+    import torch
+
+    from busca_tpu_torch.models.centertrack import CenterTrackNet
+
+    def maps(model):
+        x = torch.zeros((1, 3) + CT_TEST_SIZE, device=det.device)
+        with torch.no_grad():
+            return model(canvas.permute(2, 0, 1)[None].float() / 255.0, x,
+                         pre_hm.permute(2, 0, 1)[None])
+
+    ref = maps(det.model)
+    exact = det.model
+    for sampling in ("windowed", "local"):
+        model = CenterTrackNet(dataclasses.replace(det.config,
+                                                   sampling=sampling))
+        model.load_state_dict(exact.state_dict())
+        det.model = model.to(det.device).eval()
+        try:
+            ms = cuda_time_ms(lambda: det.step(canvas, canvas, pre_hm),
+                              reps=3, warmup=1)
+            dev = device_busy_ms(lambda: det.step(canvas, canvas, pre_hm),
+                                 reps=1)
+            got = maps(det.model)
+        finally:
+            det.model = exact
+        gap = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+        print(f"CenterTrack step with sampling={sampling!r}: {ms:.2f} ms "
+              f"back to back, {dev:.2f} ms on the device alone (exact DCN "
+              f"{step_dev:.2f}); maps' max |diff| to the exact DCN's "
+              f"{gap:.3g}")
+        del model
+
+
+def ct_detect_stages(det, tracker, frames, det_ms):
+    """A second run of the loop with ``det.detect``'s stages each timed on
+    the host's clock up to a synchronize: first the device work the
+    tracker left queued (the sync-free loop waits for it in the frame's
+    upload), then the frame's upload, the letterbox (K1), the prior
+    heatmap's render on the host and its upload, the device step, and the
+    one readback with the dicts.  Printed in ms/frame beside ``det_ms``,
+    the sync-free loop's detector time."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import track_frames_centertrack
+    from busca_tpu_torch.trackers.base import Track
+
+    parts = dict.fromkeys(("the tracker's queued device work",
+                           "frame upload", "letterbox (K1)",
+                           "pre_hm render (host)", "pre_hm upload", "step",
+                           "readback + dicts"), 0.0)
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[key] += time.perf_counter() - t0
+        return out
+
+    def staged_detect(frame_bgr, tracks=None):  # detect(), stage by stage
+        timed("the tracker's queued device work", lambda: None)
+        frame = timed("frame upload", lambda: torch.as_tensor(
+            np.asarray(frame_bgr)).to(det.device))
+        canvas, r = timed("letterbox (K1)", lambda: det.prep(frame))
+        if det._pre_canvas is None:
+            det._pre_canvas = canvas
+        hm = timed("pre_hm render (host)",
+                   lambda: det._render_pre_hm(tracks, r))
+        pre_hm = timed("pre_hm upload",
+                       lambda: torch.from_numpy(hm).to(det.device))
+        decoded = timed("step", lambda: det.step(canvas, det._pre_canvas,
+                                                 pre_hm))
+        det._pre_canvas = canvas
+        return timed("readback + dicts",
+                     lambda: det.results(decoded, r)), canvas, r
+
+    det.detect = staged_detect
+    det.reset()
+    Track.reset_id_counter()
+    try:
+        res = track_frames_centertrack(det, tracker, frames,
+                                       name="synthetic-1080p")
+    finally:
+        del det.detect
+    ms = {k: v * 1e3 / len(frames) for k, v in parts.items()}
+    print(f"CenterTrack detect() by stage (a second loop, synchronized "
+          f"after each stage, ms/frame): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; sum {sum(ms.values()):.2f}, this loop's detector "
+          f"{res.stage_times['detector_s'] * 1e3 / res.num_frames:.2f}, "
+          f"the sync-free loop's {det_ms:.2f}")
+
+
+def phase_centertrack(device, engine):
+    """Phase 9a: the full-width CenterTrack (DLA-34, exact DCNv2, 544x960,
+    float32) against the CPU, its step's time, peak memory, profile and DCN
+    share, the two other samplings' steps, then
+    ``track_frames_centertrack`` with ``CenterTrackAdapter`` + BUSCA in
+    ``engine``'s dtype over the dropout sequence at 1080x1920.  Returns
+    K1's launches over the loop."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import (
+        CenterTrackDetector,
+        track_frames_centertrack,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.models.centertrack import CenterTrackConfig
+    from busca_tpu_torch.ops import crop_cuda
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    cfg = CenterTrackConfig()
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    frames = [seq.frame(t) for t in range(CT_FRAMES)]
+    t0 = time.perf_counter()
+    det = CenterTrackDetector(cfg, test_size=CT_TEST_SIZE,
+                              out_thresh=CT_OUT_THRESH, device=device,
+                              seed=0)
+    bias = ct_random_weights(det, frames[0])
+    n_params = sum(p.numel() for p in det.model.parameters())
+    torch.cuda.synchronize()
+    print(f"CenterTrack build (DLA-34 {cfg.channels}, levels {cfg.levels}, "
+          f"sampling {cfg.sampling!r}, {CT_TEST_SIZE[0]}x{CT_TEST_SIZE[1]}, "
+          f"{n_params} parameters) and calibration: "
+          f"{time.perf_counter() - t0:.2f} s; hm weights x{CT_HM_GAIN}, hm "
+          f"bias {bias:.4f}, wh bias {CT_WH_BIAS}")
+    ct_check_against_cpu(det, device)
+
+    canvas, _ = det.prep(torch.as_tensor(frames[0]).to(device))
+    pre_hm = torch.from_numpy(det._render_pre_hm(
+        [{"bbox": b} for b in seq.detections(0)[0]],
+        CT_TEST_SIZE[0] / FRAME_HW[0])).to(device)
+    ct_offsets_report(det, canvas, pre_hm)
+
+    step_ms = cuda_time_ms(lambda: det.step(canvas, canvas, pre_hm),
+                           reps=10, warmup=2)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.step(canvas, canvas, pre_hm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    x = (canvas.permute(2, 0, 1)[None].float() / 255.0,) * 2 + \
+        (pre_hm.permute(2, 0, 1)[None],)
+    flops, dcn_flops = ct_flops(det.model, x)
+    rate = flops / (step_ms * 1e-3)
+    print(f"CenterTrack step (normalize, DLA-34 + 16 DCN, sigmoid, decode) "
+          f"at {CT_TEST_SIZE}: {step_ms:.2f} ms; {flops / 1e9:.2f} GFLOP "
+          f"float32 ({dcn_flops / 1e9:.2f} in the DCN contractions), "
+          f"{rate / 1e12:.2f} TFLOP/s, {100 * rate / FP32_FLOPS_PER_S:.1f}% "
+          f"of the 67 TFLOP/s peak (bound "
+          f"{flops / FP32_FLOPS_PER_S * 1e3:.2f} ms)")
+    print(f"CenterTrack step peak memory: {peak / 1e6:.1f} MB allocated, "
+          f"{(peak - held) / 1e6:.1f} MB above the {held / 1e6:.1f} MB held "
+          "before the step")
+    by_kind = profile_step(lambda: det.step(canvas, canvas, pre_hm),
+                           step_ms, label="CenterTrack step", top=12)
+    step_dev = sum(by_kind.values())
+    if step_dev:
+        g = by_kind.get("gather (index_select)", 0.0)
+        print(f"CenterTrack step profile: DCN gathers (index_select) "
+              f"{g:.2f} ms ({100 * g / step_dev:.1f}% of the device time)")
+    ct_dcn_times(det, canvas, pre_hm, step_dev)
+    ct_sampling_steps(det, canvas, pre_hm, step_dev)
+
+    def make_ct_tracker():
+        return make_tracker(
+            "centertrack", {"use_busca": True,
+                            "track_thresh": CT_TRACK_THRESH,
+                            "use_camera_motion_compensation": False},
+            engine, CROP_HW)
+
+    tracker = make_ct_tracker()
+    rounds = Counted(engine, "associate")
+    n_dets = []
+    detect = det.detect
+
+    def counted_detect(frame, tracks=None):
+        out = detect(frame, tracks=tracks)
+        n_dets.append(len(out[0]))
+        return out
+
+    det.detect = counted_detect
+    # the (frame, output, flags) of every K1 launch in the loop: each must
+    # be a shape held against the plain version in phase 1
+    k1_shapes = set()
+    launch = crop_cuda.launch
+
+    def recorded_launch(frame, boxes, scratch, out, **kw):
+        k1_shapes.add((tuple(frame.shape[:2]), tuple(out.shape[1:3]),
+                       tuple(sorted(kw.items()))))
+        return launch(frame, boxes, scratch, out, **kw)
+
+    crop_cuda.launch = recorded_launch
+    det.reset()
+    Track.reset_id_counter()
+    crop_resize_cuda.launches = 0
+    try:
+        res = track_frames_centertrack(det, tracker, frames,
+                                       name="synthetic-1080p")
+    finally:
+        crop_cuda.launch = launch
+        rounds.remove()
+        del det.detect
+    k1 = crop_resize_cuda.launches
+    main_kw = tuple(sorted(K1_MAIN_KW.items()))
+    held = {(FRAME_HW, CT_LETTERBOX_HW, main_kw),
+            (CT_TEST_SIZE, CROP_HW, main_kw)}
+    print(f"CenterTrack loop: K1 (frame, output) shapes "
+          f"{sorted(s[:2] for s in k1_shapes)}")
+    check(k1_shapes <= held, f"K1 ran at shapes its own phase did not "
+          f"hold: {k1_shapes - held}")
+    n_tracks = [len(r[2]) for r in res.results]
+    det_ms = res.stage_times["detector_s"] * 1e3 / res.num_frames
+    trk_ms = res.stage_times["tracker_s"] * 1e3 / res.num_frames
+    print(f"CenterTrack loop ({FRAME_HW[0]}x{FRAME_HW[1]}, {res.num_frames} "
+          f"frames, out_thresh {CT_OUT_THRESH}, track_thresh "
+          f"{CT_TRACK_THRESH}, BUSCA {engine.config.dtype}): detections per "
+          f"frame {n_dets}; output tracks per frame {n_tracks}")
+    print(f"CenterTrack loop: detector {det_ms:.2f} ms/frame, tracker "
+          f"{trk_ms:.2f} ms/frame, total {1e3 / res.fps:.2f} ms/frame; "
+          f"{rounds.calls} third rounds; K1 launches {k1}")
+    ct_detect_stages(det, make_ct_tracker(), frames, det_ms)
+    for _, tlwhs, _, confs in res.results:
+        check(np.isfinite(np.reshape(tlwhs, (-1, 4))).all()
+              and np.isfinite(confs).all(), "non-finite tracks")
+    check(10 <= np.mean(n_dets) <= 30,
+          f"{np.mean(n_dets):.1f} detections per frame, not 10-30")
+    check(sum(n_tracks) > 0, "the CenterTrack loop output no track")
+    check(k1 >= res.num_frames,
+          f"K1 launched {k1} times, under one per frame")
+    check(rounds.calls >= 1, "no third round ran in the CenterTrack loop")
+    return k1
+
+
+def phase_alternates(device, crowd):
+    """Phase 9b: MOTDT with the ReID extractor on the crowd's first
+    ALT_FRAMES frames (ms/frame, the extractor's share, K1's launches), and
+    SORT on all its detections through the CLI's ``make_tracker`` (ms/frame
+    and metrics against the crowd's ground truth).  Returns K1's launches on
+    MOTDT."""
+    import numpy as np
+
+    from busca_tpu_torch.eval.run import make_tracker, shim_for_runner
+    from busca_tpu_torch.eval.runner import evaluate_sequence, run_sequence
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers import sort as sort_mod
+    from busca_tpu_torch.trackers.base import IdCounter
+
+    ext, frames, dets, gt = crowd
+    n = ALT_FRAMES
+    crop_resize_cuda.launches = 0
+    res, stats = run_feature_tracker(
+        f"MOTDT (first {n} frames, the extractor on every detection)",
+        "motdt", None, ext, frames[:n], dets[:n],
+        {f: gt[f] for f in range(1, n + 1)}, {})
+    k1 = crop_resize_cuda.launches
+    print(f"MOTDT loop: K1 launches {k1}")
+    check(k1 >= n, f"MOTDT launched K1 {k1} times, under one per frame")
+    check(sum(len(r[2]) for r in res.results) > 0, "MOTDT output no track")
+
+    # SORT runs on the host alone (no tensor reaches the card), so there is
+    # no card-vs-CPU check: its parity with busca_tpu's SORT is held on the
+    # CPU by tests/test_torch_sort_motdt.py and tests/test_torch_run_cli.py
+    sort_mod.SortTrack._count = IdCounter(1)
+    tracker = shim_for_runner("sort", make_tracker("sort", {}, None,
+                                                   CROP_HW))
+    t0 = time.perf_counter()
+    res = run_sequence(tracker, [None] * len(dets), dets, name="crowd")
+    ms = (time.perf_counter() - t0) * 1e3 / len(dets)
+    m = evaluate_sequence(res, gt)
+    rows = result_rows(res)
+    print(f"SORT on the crowd's detections ({len(dets)} frames, "
+          f"{np.mean([len(d[0]) for d in dets]):.1f} per frame): {ms:.3f} "
+          f"ms/frame (host only), {len(rows)} rows; MOTA {m.mota:.4f} IDF1 "
+          f"{m.idf1:.4f} IDs {m.num_switches}")
+    check(len(rows) > 0 and np.isfinite(rows).all(),
+          "SORT output no track or non-finite rows")
+    check(np.isfinite(m.mota) and np.isfinite(m.idf1),
+          "SORT: non-finite metrics")
+    return k1
 
 
 def main() -> int:
@@ -1754,6 +2385,9 @@ def main() -> int:
                                              "TransCenter")
         k1["letterbox_yolox"] = phase_k1_letterbox(device, YX_LETTERBOX_HW,
                                                    "YOLOX")
+        k1["letterbox_centertrack"] = phase_k1_letterbox(
+            device, CT_LETTERBOX_HW, "CenterTrack")
+        k1["crops_centertrack"] = phase_k1_canvas_crops(device)
         k1["pad_path"] = phase_k1_pad_path(device)
         k2 = phase_k2(device)
         engine, engine16 = phase_association(device)
@@ -1765,7 +2399,11 @@ def main() -> int:
             device, engine16, k2["bf16"]["kernel_ms"], "bfloat16", tc32)
         del tc32
         k1_yolox = phase_yolox(device, engine16)
-        k1_ss, k1_ghost = phase_feature_trackers(device, engine16)
+        k1_ss, k1_ghost, crowd = phase_feature_trackers(device, engine16)
+        t_phase = time.perf_counter()
+        k1_ct = phase_centertrack(device, engine16)
+        k1_motdt = phase_alternates(device, crowd)
+        print(f"phase 9: {time.perf_counter() - t_phase:.2f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1779,7 +2417,9 @@ def main() -> int:
                               "transcenter_bf16_loop": k1_tc16,
                               "yolox_loop": k1_yolox,
                               "strongsort_loop": k1_ss,
-                              "ghost_loop": k1_ghost}
+                              "ghost_loop": k1_ghost,
+                              "centertrack_loop": k1_ct,
+                              "motdt_loop": k1_motdt}
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

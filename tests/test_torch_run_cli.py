@@ -1,11 +1,19 @@
 """Both packages' CLIs (``busca_tpu.eval.run.main`` and
 ``busca_tpu_torch.eval.run.main``) on the MOTChallenge fixture of
-tests/test_run_cli.py: the cached ``det/det.txt`` mode for each tracker,
-``--gsi``, ``--aflink`` on a ``.npz`` saved by busca_tpu, StrongSORT's
-``--npy-det`` with ``--ecc-json``, and BUSCA (float32, 64x32 crops, the
-small model of tests/test_torch_byte_pipeline.py, its ``.npz`` saved by
-busca_tpu).  The result files must be identical and the accumulated CLEAR
-equal; ``global_metrics`` must equal ``metrics.accumulate``.
+tests/test_run_cli.py: the cached ``det/det.txt`` mode for each tracker
+(SORT and MOTDT too), ``--gsi``, ``--aflink`` on a ``.npz`` saved by
+busca_tpu, StrongSORT's ``--npy-det`` with ``--ecc-json``, and BUSCA
+(float32, 64x32 crops, the small model of tests/test_torch_byte_pipeline.py,
+its ``.npz`` saved by busca_tpu).  The result files must be identical and
+the accumulated CLEAR equal; ``global_metrics`` must equal
+``metrics.accumulate``.  ``--synthetic`` with SORT, MOTDT and the
+CenterTrack adapter: equal metric dicts.
+
+The live CenterTrack path (``--detector centertrack --tracker centertrack
+--centertrack-arch tiny``, with and without BUSCA) runs on the synthetic
+dropout sequence written as JPEGs, with the designed colour detector of
+tests/test_torch_centertrack_loop.py saved by busca_tpu as ``.npz``: frames
+and ids equal, boxes within the loop test's bound plus one printed step.
 """
 
 import os
@@ -21,11 +29,16 @@ from busca_tpu.models.aflink import AFLinkConfig, synthetic_batch
 from busca_tpu.models.busca import BuscaConfig as JCfg
 from busca_tpu.models.busca import BuscaModel as JModel
 from busca_tpu.models.checkpoint import save_params_npz
+from busca_tpu.trackers import motdt as jmotdt
+from busca_tpu.trackers import sort as jsort
+from busca_tpu.trackers.base import IdCounter as JIdCounter
 from busca_tpu.trackers.base import Track as JTrack
 from busca_tpu_torch.eval import run as trun
 from busca_tpu_torch.eval.metrics import accumulate
 from busca_tpu_torch.eval.runner import global_metrics
-from busca_tpu_torch.trackers.base import Track
+from busca_tpu_torch.trackers import motdt as tmotdt
+from busca_tpu_torch.trackers import sort as tsort
+from busca_tpu_torch.trackers.base import IdCounter, Track
 from test_run_cli import mot_fixture  # noqa: F401 (the fixture)
 from test_torch_byte_pipeline import CROP_HW, SMALL, engines  # noqa: F401
 from test_torch_strongsort import one_torch_thread  # noqa: F401
@@ -73,17 +86,28 @@ def artifacts(tmp_path_factory, mot_fixture):  # noqa: F811
             "ecc": ecc}
 
 
-def _both(mot_dir, tmp_path, argv):
+def _reset_torch_ids():
+    Track.reset_id_counter()
+    tsort.SortTrack._count = IdCounter(1)
+    tmotdt.MotdtTrack._count = IdCounter(1)
+
+
+def _reset_jax_ids():
+    JTrack.reset_id_counter()
+    jsort.SortTrack._count = JIdCounter(1)
+    jmotdt.MotdtTrack._count = JIdCounter(1)
+
+
+def _both(mot_dir, tmp_path, argv, name=NAME):
     """Run both CLIs; returns ((rows txt, per-seq) torch, (...) jax)."""
     out = []
     for tag, main, extra, reset in (
-            ("torch", trun.main, ["--device", "cpu"],
-             Track.reset_id_counter),
-            ("jax", jrun.main, [], JTrack.reset_id_counter)):
+            ("torch", trun.main, ["--device", "cpu"], _reset_torch_ids),
+            ("jax", jrun.main, [], _reset_jax_ids)):
         reset()
         per_seq = main(["--mot-dir", mot_dir, "--output-dir",
                         str(tmp_path / tag)] + argv + extra)
-        with open(tmp_path / tag / f"{NAME}.txt") as f:
+        with open(tmp_path / tag / f"{name}.txt") as f:
             out.append((f.read(), per_seq))
     return out
 
@@ -97,7 +121,7 @@ def _assert_equal(got, want):
 
 
 @pytest.mark.parametrize("tracker", ["byte", "strongsort", "deepsort",
-                                     "ghost"])
+                                     "ghost", "sort", "motdt"])
 def test_det_txt_mode_matches_jax(mot_fixture, tmp_path,  # noqa: F811
                                   tracker):
     got, want = _both(mot_fixture, tmp_path, ["--tracker", tracker])
@@ -216,3 +240,91 @@ def test_run_ab_matches_jax(engines):  # noqa: F811
     assert set(got) == set(want) == {"base", "busca"}
     for tag in got:
         assert got[tag].as_dict() == want[tag].as_dict(), tag
+
+
+@pytest.mark.parametrize("tracker", ["sort", "motdt", "centertrack"])
+def test_synthetic_matches_jax(tracker, capsys):
+    """``--synthetic`` without BUSCA (SORT and MOTDT have no BUSCA hook;
+    CenterTrack's adapter through ``CenterTrackShim``): equal metrics but
+    the wall-clock fps."""
+    out = []
+    for main, extra, reset in ((trun.main, ["--device", "cpu"],
+                                _reset_torch_ids),
+                               (jrun.main, [], _reset_jax_ids)):
+        reset()
+        out.append(main(["--synthetic", "--tracker", tracker,
+                         "--num-frames", "30"] + extra))
+    got, want = out
+    assert set(got) == set(want) == {"base"}
+    for d in (got["base"], want["base"]):
+        d.pop("fps")
+    assert got == want
+    assert got["base"]["mota"] > 0.5
+
+
+CT_NAME = "CT-SYN"
+CT_FRAMES = 12
+
+
+@pytest.fixture(scope="module")
+def ct_sequence(tmp_path_factory):
+    """The occluded dropout sequence of tests/test_torch_centertrack_loop.py
+    as a MOTChallenge directory (JPEG frames and gt), and the designed
+    colour detector's busca_tpu variables as ``.npz``."""
+    import cv2
+
+    from busca_tpu.eval.synthetic import default_dropout_sequence
+    from busca_tpu.models.convert import convert_centertrack_state_dict
+    from test_torch_centertrack_loop import (
+        colour_detector_state,
+        occluded_frames,
+    )
+
+    root = tmp_path_factory.mktemp("ct") / CT_NAME
+    (root / "img1").mkdir(parents=True)
+    (root / "gt").mkdir()
+    seq = default_dropout_sequence(CT_FRAMES)
+    gt = seq.ground_truth()
+    with open(root / "gt" / "gt.txt", "w") as f:
+        for t, frame in enumerate(occluded_frames(CT_FRAMES)):
+            cv2.imwrite(str(root / "img1" / f"{t + 1:06d}.jpg"), frame)
+            for tlwh, gid in zip(*gt[t + 1]):
+                f.write(f"{t + 1},{gid},{tlwh[0]:.2f},{tlwh[1]:.2f},"
+                        f"{tlwh[2]:.2f},{tlwh[3]:.2f},1,1,1\n")
+    with open(root / "seqinfo.ini", "w") as f:
+        f.write(f"[Sequence]\nname={CT_NAME}\nimDir=img1\nframeRate=30\n"
+                f"seqLength={CT_FRAMES}\nimWidth={seq.width}\n"
+                f"imHeight={seq.height}\nimExt=.jpg\n")
+    npz = str(root.parent / "ct.npz")
+    save_params_npz(npz, convert_centertrack_state_dict(
+        {k: v.numpy() for k, v in colour_detector_state().items()}))
+    return str(root), npz
+
+
+@pytest.mark.parametrize("busca", [False, True], ids=["base", "busca"])
+def test_centertrack_cli_matches_jax(ct_sequence, artifacts, tmp_path,
+                                     one_torch_thread, busca):  # noqa: F811
+    from test_torch_centertrack_loop import BOX_TOL, OUT_THRESH, TEST_SIZE
+
+    seq_dir, npz = ct_sequence
+    argv = ["--detector", "centertrack", "--tracker", "centertrack",
+            "--centertrack-arch", "tiny", "--detector-ckpt", npz,
+            "--test-h", str(TEST_SIZE[0]), "--test-w", str(TEST_SIZE[1]),
+            "--det-conf", str(OUT_THRESH)]
+    if busca:
+        argv += ["--use-busca", "--busca-dtype", "float32",
+                 "--busca-config", artifacts["cfg"], "--busca-ckpt",
+                 artifacts["busca"], "--crop-h", str(CROP_HW[0]),
+                 "--crop-w", str(CROP_HW[1])]
+    (got_txt, got_m), (want_txt, want_m) = _both(seq_dir, tmp_path, argv,
+                                                 CT_NAME)
+    got = np.loadtxt(got_txt.splitlines(), delimiter=",")
+    want = np.loadtxt(want_txt.splitlines(), delimiter=",")
+    assert want.shape == got.shape and len(want) == 2 * CT_FRAMES
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_allclose(got[:, 2:6], want[:, 2:6], rtol=0,
+                               atol=BOX_TOL + 0.01)
+    np.testing.assert_allclose(got[:, 6], want[:, 6], rtol=0, atol=0.011)
+    a, b = got_m[CT_NAME].as_dict(), want_m[CT_NAME].as_dict()
+    for k in b:
+        assert a[k] == pytest.approx(b[k], rel=0, abs=1e-3), k

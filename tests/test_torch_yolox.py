@@ -62,8 +62,8 @@ def models():
     variables = _randomize(jax.tree_util.tree_map(
         np.asarray, jdetector.init_variables(jcfg, SIZES[0])), 1)
     tmod = YOLOX(YoloxConfig(depth=d, width=w, num_classes=c))
-    tdetector.load_yolox_state_dict(tmod, yolox_state_dict_from_flax(
-        variables))
+    tdetector.load_published_state_dict(tmod, yolox_state_dict_from_flax(
+        variables), "YOLOX")
     out["w0.125_c1"] = (jcfg, variables, tmod.eval())
 
     d, w, c = CONFIGS["w0.25_c2"]

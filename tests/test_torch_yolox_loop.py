@@ -295,11 +295,9 @@ def test_cli_refuses_flags_of_later_items(mot_sequence, capsys):
 
     base = ["--mot-dir", mot_sequence, "--device", "cpu"]
     for argv, item in ((["--detector", "yolox-tiny", "--lockstep"], "21"),
-                       (["--detector", "centertrack"], "18"),
                        (["--detector", "yolox-tiny", "--mem-cap", "20"],
                         "21"),
-                       (["--online-visualization"], "25"),
-                       (["--tracker", "sort"], "17")):
+                       (["--online-visualization"], "25")):
         with pytest.raises(SystemExit):
             trun.main(base + argv)
         assert f"item {item}" in capsys.readouterr().err
