@@ -13,6 +13,8 @@ module beside the JAX package it is diffed against:
 - ``trackers`` — the BYTE strategy with the BUSCA third round
 - ``eval``     — synthetic sequences, MOT IO and frame loader, CLEAR/IDF1/
   HOTA, the runner, the live detector loops, the CLI
+- ``serve``    — the tracking server over a unix socket and tracker
+  snapshot/restore
 - ``config``   — reference-YAML config loading
 
 The package imports torch, numpy and scipy only.  Entry points take a

@@ -28,9 +28,11 @@ frame t.  Its canvas stays on the card for the tracker's crops, as
 CenterTrack's does.  TransCenter and CenterTrack feed the tracker's state
 back and cannot pipeline.
 
-Lockstep batch-B (``_make_batch_step``, ``track_sequences_lockstep``) and
-CenterTrack's serving view (``CenterTrackRunnerDetector``) are ROADMAP
-items 21 and 22.
+:class:`CenterTrackRunnerDetector` is CenterTrack's view for the tracking
+server (``serve/server.py``).  The stateful detectors' ``state_dict`` /
+``load_state_dict`` carry the previous canvas through a snapshot.  Lockstep
+batch-B (``_make_batch_step``, ``track_sequences_lockstep``) is ROADMAP item
+21.
 """
 
 from __future__ import annotations
@@ -129,6 +131,18 @@ def normalize_canvas(canvas: torch.Tensor, mean: torch.Tensor,
     if to_rgb:
         x = x.flip(-1)
     return (x * INV_255 - mean) / std
+
+
+def _canvas_state(pre: Optional[torch.Tensor]) -> dict:
+    """A feedback detector's previous canvas as a snapshot's host numpy."""
+    return {"pre_canvas": None if pre is None else pre.cpu().numpy()}
+
+
+def _load_canvas(state: dict, device) -> Optional[torch.Tensor]:
+    """:func:`_canvas_state`'s canvas back on ``device``."""
+    pre = state.get("pre_canvas")
+    return None if pre is None else torch.as_tensor(
+        np.asarray(pre, np.uint8)).to(device)
 
 
 @dataclasses.dataclass
@@ -446,13 +460,10 @@ class TransCenterDetector:
         canvas (the reference's ``pre_sample``).  Restoring it makes the next
         frame equal to the unbroken stream's; a plain ``reset()`` would
         re-prime ``pre_sample`` from the next frame instead."""
-        pre = self._pre_canvas
-        return {"pre_canvas": None if pre is None else pre.cpu().numpy()}
+        return _canvas_state(self._pre_canvas)
 
     def load_state_dict(self, state: dict):
-        pre = state.get("pre_canvas")
-        self._pre_canvas = None if pre is None else torch.as_tensor(
-            np.asarray(pre, np.uint8)).to(self.device)
+        self._pre_canvas = _load_canvas(state, self.device)
 
     def prep(self, frame: torch.Tensor) -> Tuple[torch.Tensor, float]:
         """uint8 BGR frame ``[H, W, 3]`` on the device -> the uint8 BGR
@@ -735,6 +746,17 @@ class CenterTrackDetector:
         """Per-video reset (detector.py:90-104, 'Initialize tracking!')."""
         self._pre_canvas = None
 
+    def state_dict(self) -> dict:
+        """Cross-frame state as plain numpy: the previous frame's canvas
+        (the reference's ``pre_images``, detector.py:100-104), for a
+        snapshot's bit-equal resume."""
+        return _canvas_state(self._pre_canvas)
+
+    def load_state_dict(self, state: dict):
+        """Put a :meth:`state_dict`'s canvas back, on the detector's
+        device."""
+        self._pre_canvas = _load_canvas(state, self.device)
+
     def prep(self, frame: torch.Tensor) -> Tuple[torch.Tensor, float]:
         """uint8 BGR frame ``[H, W, 3]`` on the device -> the uint8 BGR
         letterbox canvas ``[test_h, test_w, 3]`` (zero fill, the frame at
@@ -875,6 +897,41 @@ def build_centertrack_detector(arch="dla34", sampling="deformable",
     return CenterTrackDetector(cfg, state, test_size=test_size,
                                out_thresh=out_thresh, device=device,
                                seed=seed)
+
+
+class CenterTrackRunnerDetector:
+    """:class:`DetectorOutput` view of the dict-IO :class:`CenterTrackDetector`
+    for the tracking server (``busca_tpu.eval.detector.
+    CenterTrackRunnerDetector``): the tracker's current dict tracks
+    (``CenterTrackShim.get_detector_positions``) render the prior heatmap,
+    and the dict detections flatten to arrays, which loses nothing the
+    adapter reads (bbox, score, class; the reference shim,
+    utils/tracker.py:40-74, drops the rest the same way)."""
+
+    uses_feedback = True
+
+    def __init__(self, det: CenterTrackDetector):
+        self.det = det
+
+    def reset(self):
+        self.det.reset()
+
+    def state_dict(self) -> dict:
+        return self.det.state_dict()
+
+    def load_state_dict(self, state: dict):
+        self.det.load_state_dict(state)
+
+    def detect(self, frame_bgr, current_pos=None) -> DetectorOutput:
+        from busca_tpu_torch.trackers.centertrack import dicts_to_arrays
+
+        results, canvas, r = self.det.detect(frame_bgr,
+                                             tracks=current_pos or [])
+        boxes, scores = dicts_to_arrays(results)
+        # the dict boxes are in original coordinates; the protocol carries
+        # detector coordinates (the caller divides by the scale)
+        return DetectorOutput(boxes_tlbr=boxes * r, scores=scores,
+                              image=canvas, scale=r)
 
 
 def track_frames_centertrack(detector: CenterTrackDetector, adapter, frames,

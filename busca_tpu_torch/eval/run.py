@@ -258,6 +258,12 @@ class CenterTrackShim:
     def __init__(self, trk):
         self.trk = trk
 
+    def get_detector_positions(self):
+        """The adapter's current dict tracks, for the stateful detector's
+        prior heatmap (the serving loop's feedback hook; detector.py:143-156
+        hands the tracker's tracks to the detector the same way)."""
+        return self.trk.tracks
+
     def update(self, boxes, scores, scale, frame):
         dicts = [{"bbox": b, "score": s, "class": 1}
                  for b, s in zip(boxes, scores)]

@@ -139,6 +139,10 @@ def transcenter_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     key: a Dense kernel ``[in, out]`` becomes a Linear weight ``[out, in]``,
     a convolution kernel HWIO becomes OIHW (a depthwise ``[3, 3, 1, C]``
     becomes ``[C, 1, 3, 3]``), and a LayerNorm ``scale`` becomes ``weight``.
+    Either sampling's tree loads: the local modes' ``value_{l}`` Dense
+    layers, or the deformable mode's four ``level_embed_{l}`` vectors (kept
+    as they are) and each decoder layer's ``cross_cur``/``cross_pre``
+    ``value``, ``offsets``, ``weights`` and ``proj``.
     """
     params = params.get("params", params)
     out: Dict[str, torch.Tensor] = {}

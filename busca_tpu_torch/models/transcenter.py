@@ -11,15 +11,17 @@ mechanical):
   shared weights.  The two frames go through it as one batch of 2.
 - **Dense center queries** at stride ``down_ratio`` (4), refined by
   ``num_decoder_layers`` decoder layers of current-frame and previous-frame
-  :class:`LocalMultiScaleAttention` plus an FFN.  The attention's bilinear
-  upsampling of the levels and its 36-term weighted-tap sum are
+  attention plus an FFN.  ``sampling="local"`` (the default) is
+  :class:`LocalMultiScaleAttention`: its bilinear upsampling of the levels
+  and its 36-term weighted-tap sum are
   :func:`busca_tpu_torch.ops.lma.local_tap_sum_levels`, which on the card
-  is kernel K2.
+  is kernel K2.  ``sampling="deformable"`` is the published GPU design,
+  :class:`DeformableCrossAttention` (multi-scale deformable attention,
+  :func:`busca_tpu_torch.ops.deform.multi_scale_deformable_attention`, plain
+  torch on every device) over both frames' flattened, level-embedded
+  memories, each query sampling around its own pixel centre.
 - **Tracker feedback** as a Gaussian prior heatmap (``pre_hm``) embedded into
   the queries; **CenterNet-style heads** and :func:`generic_decode`.
-
-``sampling="deformable"`` (multi-scale deformable attention,
-``busca_tpu/ops/deform.py``) is not ported yet and raises.
 
 Every LayerNorm uses flax's epsilon, 1e-6 (torch's default is 1e-5).  The
 spatial-reduction convolution pads like flax's ``"SAME"``.
@@ -28,7 +30,15 @@ spatial-reduction convolution pads like flax's ``"SAME"``.
 compute dtype, with flax's rules on float32 parameters
 (``models/precision.py``): in bf16 the convolutions, linears and LayerNorms
 return bf16, the level maps and the softmaxed tap weights reach K2 in bf16,
-and the five output maps are bf16, as busca_tpu's.
+and the five output maps are bf16, as busca_tpu's.  In ``deformable`` mode
+busca_tpu's promotions place each rounding so: the bf16 level maps plus the
+float32 level embeddings make a float32 memory, which the bf16 ``value``
+projection rounds to bf16; the offsets are bf16, and dividing them by the
+float32 level sizes and adding the float32 reference points makes the
+sample coordinates float32; the softmaxed weights are bf16; the gathered
+bf16 values are widened by the float32 bilinear factors, and each level's
+weighted sum goes into a float32 accumulator; the bf16 ``proj`` rounds the
+float32 result.
 """
 
 from __future__ import annotations
@@ -50,16 +60,14 @@ from busca_tpu_torch.models.precision import (
     conv1x1,
     product,
 )
+from busca_tpu_torch.ops.deform import multi_scale_deformable_attention
 from busca_tpu_torch.ops.lma import local_tap_sum_levels
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 HM_BIAS = -4.6  # sigmoid ~ 0.01 prior (the CenterNet focal-loss init)
 FFN_RATIO = 4  # the decoder FFN's hidden width over the model width
-DEFORMABLE_TODO = (
-    "sampling='deformable' (multi-scale deformable attention, "
-    "busca_tpu/ops/deform.py) is not ported yet: ROADMAP.md Queue 1, "
-    "item 19 (Slice 5, the deformable detectors)"
-)
+LEVEL_EMBED_STD = 0.02  # flax's normal(0.02) for the level embeddings
+SAMPLINGS = ("local", "local_pallas", "deformable")
 
 
 def _layer_norm(dim: int, dtype: torch.dtype) -> LayerNorm:
@@ -258,31 +266,98 @@ class LocalMultiScaleAttention(nn.Module):
         return self.proj(out.reshape(b, h4 * w4, self.dim))
 
 
+class DeformableCrossAttention(nn.Module):
+    """MSDA block (``busca_tpu.models.transcenter.DeformableCrossAttention``):
+    each query samples ``points`` positions per head and level around its
+    reference point, at offsets in level pixels, and sums the samples with
+    weights softmaxed over level x point."""
+
+    def __init__(self, dim: int, heads: int = 8, points: int = 9,
+                 levels: int = 4, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dim, self.heads, self.points, self.levels = (dim, heads, points,
+                                                          levels)
+        self.value = Linear(dim, dim, dtype=dtype)
+        self.offsets = Linear(dim, heads * levels * points * 2, dtype=dtype)
+        self.weights = Linear(dim, heads * levels * points, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, queries, ref_points, memory,
+                spatial_shapes: Sequence[Tuple[int, int]]):
+        """queries ``[B, Lq, C]``; ref_points ``[B, Lq, 2]`` float32 (x, y)
+        in [0, 1]; memory ``[B, Lv, C]``, the levels flattened in
+        ``spatial_shapes`` order."""
+        b, lq, _ = queries.shape
+        nh, nl, npt = self.heads, self.levels, self.points
+        value = self.value(memory).reshape(b, -1, nh, self.dim // nh)
+        off = self.offsets(queries).reshape(b, lq, nh, nl, npt, 2)
+        w = self.weights(queries).reshape(b, lq, nh, nl * npt).softmax(
+            dim=-1).reshape(b, lq, nh, nl, npt)
+        # (w_l, h_l) per level, divided by as a tensor: float32 coordinates
+        sizes = torch.tensor([(wl, hl) for hl, wl in spatial_shapes],
+                             dtype=torch.float32, device=queries.device)
+        loc = ref_points[:, :, None, None, None, :] + off / sizes[:, None, :]
+        out = multi_scale_deformable_attention(value, spatial_shapes, loc, w)
+        return self.proj(out)
+
+
+def reference_points(h4: int, w4: int, device) -> torch.Tensor:
+    """Each query's own pixel centre, normalized: ``[(gx + 0.5) / w4, (gy +
+    0.5) / h4]`` in query order (row-major), computed in float64 and rounded
+    to float32 -> ``[h4 * w4, 2]``."""
+    gy, gx = torch.meshgrid(
+        torch.arange(h4, dtype=torch.float64, device=device),
+        torch.arange(w4, dtype=torch.float64, device=device), indexing="ij")
+    ref = torch.stack([(gx.reshape(-1) + 0.5) / w4,
+                       (gy.reshape(-1) + 0.5) / h4], dim=-1)
+    return ref.to(torch.float32)
+
+
 class DecoderLayer(nn.Module):
     """Current-frame attention -> previous-frame attention -> FFN, pre-LN
-    residuals.  ``sampling`` is ``"local"`` or ``"local_pallas"``: in the
-    port both are the same :class:`LocalMultiScaleAttention`."""
+    residuals.  ``sampling``: ``"local"`` or ``"local_pallas"`` (in the port
+    both are the same :class:`LocalMultiScaleAttention`), or
+    ``"deformable"`` (:class:`DeformableCrossAttention`)."""
 
     def __init__(self, dim: int, heads: int, levels: int = 4,
-                 sampling: str = "local", dtype: torch.dtype = torch.float32):
+                 sampling: str = "local", dtype: torch.dtype = torch.float32,
+                 points: int = 9):
         super().__init__()
-        if sampling not in ("local", "local_pallas"):
-            raise NotImplementedError(DEFORMABLE_TODO)
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"sampling must be one of {SAMPLINGS}, not "
+                             f"{sampling!r}")
+        self.deformable = sampling == "deformable"
+        if self.deformable:
+            def attention():
+                return DeformableCrossAttention(dim, heads, points, levels,
+                                                dtype)
+        else:
+            def attention():
+                return LocalMultiScaleAttention(dim, heads, levels, dtype)
         self.ln1 = _layer_norm(dim, dtype)
-        self.cross_cur = LocalMultiScaleAttention(dim, heads, levels, dtype)
+        self.cross_cur = attention()
         self.ln2 = _layer_norm(dim, dtype)
-        self.cross_pre = LocalMultiScaleAttention(dim, heads, levels, dtype)
+        self.cross_pre = attention()
         self.ln3 = _layer_norm(dim, dtype)
         self.fc1 = Linear(dim, dim * FFN_RATIO, dtype=dtype)
         self.fc2 = Linear(dim * FFN_RATIO, dim, dtype=dtype)
 
-    def forward(self, q, mem_cur, mem_pre, shapes):
-        """q ``[B, H4*W4, C]``; mem_*: per-level ``[B, h_l, w_l, C]``;
-        shapes: the levels' ``(h, w)``, the first being the query grid."""
-        b, _, c = q.shape
-        h4, w4 = shapes[0]
-        q = q + self.cross_cur(self.ln1(q).reshape(b, h4, w4, c), mem_cur)
-        q = q + self.cross_pre(self.ln2(q).reshape(b, h4, w4, c), mem_pre)
+    def forward(self, q, mem_cur, mem_pre, shapes, ref=None):
+        """q ``[B, H4*W4, C]``; shapes: the levels' ``(h, w)``, the first
+        being the query grid.  Local sampling: mem_* are per-level ``[B,
+        h_l, w_l, C]``.  Deformable: mem_* are the flattened memories ``[B,
+        Lv, C]`` and ``ref`` the queries' reference points ``[B, H4*W4,
+        2]``."""
+        if self.deformable:
+            q = q + self.cross_cur(self.ln1(q), ref, mem_cur, shapes)
+            q = q + self.cross_pre(self.ln2(q), ref, mem_pre, shapes)
+        else:
+            b, _, c = q.shape
+            h4, w4 = shapes[0]
+            q = q + self.cross_cur(self.ln1(q).reshape(b, h4, w4, c),
+                                   mem_cur)
+            q = q + self.cross_pre(self.ln2(q).reshape(b, h4, w4, c),
+                                   mem_pre)
         h = self.fc2(F.gelu(self.fc1(self.ln3(q))))
         return q + h
 
@@ -297,7 +372,7 @@ class TransCenterConfig:
 
     ``for_dataset("mot17"/"mot20")`` applies the per-dataset overrides (K,
     clip).  ``sampling``: "local" (default) or "local_pallas", the same math
-    here; "deformable" is not ported yet.
+    here, or "deformable" (exact MSDA, the published design).
     """
 
     dims: Tuple[int, ...] = (64, 128, 320, 512)
@@ -355,20 +430,23 @@ class TransCenterDETR(nn.Module):
         super().__init__()
         cfg = self.config = config
         dtype = compute_dtype(cfg.dtype)
-        if cfg.sampling not in ("local", "local_pallas"):
-            raise NotImplementedError(DEFORMABLE_TODO)
         hid = cfg.hidden_dim
         dt = dict(dtype=dtype)
+        self.deformable = cfg.sampling == "deformable"
         self.pvt = PVTv2(cfg.dims, cfg.heads, cfg.depths, cfg.mlp_ratios,
                          cfg.sr_ratios, dtype)
         for lvl in range(4):
             setattr(self, f"input_proj_{lvl}",
                     Conv2d(cfg.dims[lvl], hid, 1, **dt))
+            if self.deformable:  # float32, as flax's self.param
+                setattr(self, f"level_embed_{lvl}",
+                        nn.Parameter(torch.zeros(hid)))
         self.query_proj = Conv2d(cfg.dims[0], hid, 1, **dt)
         self.pre_hm_embed = Conv2d(1, hid, 3, 1, 1, **dt)
         for i in range(cfg.num_decoder_layers):
             setattr(self, f"dec_{i}", DecoderLayer(
-                hid, cfg.dec_heads, 4, sampling=cfg.sampling, dtype=dtype))
+                hid, cfg.dec_heads, 4, sampling=cfg.sampling, dtype=dtype,
+                points=cfg.dec_n_points))
         self.dec_norm = _layer_norm(hid, dtype)
         out_ch = {"hm": cfg.num_classes, "reg": 2, "wh": 2, "tracking": 2,
                   "reid": cfg.reid_dim}
@@ -379,11 +457,16 @@ class TransCenterDETR(nn.Module):
     def init_weights(self, generator: torch.Generator):
         """Seeded random weights with flax's initialisers: lecun-normal
         (truncated at 2 sigma) kernels, zero biases, unit LayerNorm scales,
-        zero attention-weight kernels, and the -4.6 ``hm`` bias.
-        ``generator`` is a CPU ``torch.Generator``."""
+        zero attention-weight and sampling-offset kernels, level embeddings
+        drawn from normal(0.02), and the -4.6 ``hm`` bias.  ``generator`` is
+        a CPU ``torch.Generator``."""
+        zero_kernels = (".weights.weight", ".offsets.weight")
         with torch.no_grad():
             for name, p in self.named_parameters():
-                if p.dim() >= 2 and not name.endswith(".weights.weight"):
+                if name.startswith("level_embed_"):
+                    val = torch.randn(p.shape, generator=generator) \
+                        * LEVEL_EMBED_STD
+                elif p.dim() >= 2 and not name.endswith(zero_kernels):
                     fan_in = int(np.prod(p.shape[1:]))
                     std = math.sqrt(1.0 / fan_in) / .87962566103423978
                     val = torch.empty(p.shape)
@@ -411,9 +494,21 @@ class TransCenterDETR(nn.Module):
         feats = self.pvt(torch.cat([curr, pre]))  # shared weights
         mem = [conv1x1(getattr(self, f"input_proj_{lvl}"), f)
                for lvl, f in enumerate(feats)]
-        mem_cur = [m[:b] for m in mem]
-        mem_pre = [m[b:] for m in mem]
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
+        if self.deformable:
+            # the flattened memory, each level plus its (float32) embedding
+            flat = torch.cat([
+                m.reshape(2 * b, -1, cfg.hidden_dim)
+                + getattr(self, f"level_embed_{lvl}")
+                for lvl, m in enumerate(mem)], dim=1)
+            mem_cur, mem_pre = flat[:b], flat[b:]
+            h4, w4 = shapes[0]
+            ref = reference_points(h4, w4, curr.device)[None].expand(
+                b, h4 * w4, 2)
+        else:
+            mem_cur = [m[:b] for m in mem]
+            mem_pre = [m[b:] for m in mem]
+            ref = None
 
         f0 = feats[0][:b]
         _, h4, w4, _ = f0.shape
@@ -421,7 +516,7 @@ class TransCenterDETR(nn.Module):
             _nchw(pre_hm)))
         q = q.reshape(b, h4 * w4, cfg.hidden_dim)
         for i in range(cfg.num_decoder_layers):
-            q = getattr(self, f"dec_{i}")(q, mem_cur, mem_pre, shapes)
+            q = getattr(self, f"dec_{i}")(q, mem_cur, mem_pre, shapes, ref)
         fmap = _nchw(self.dec_norm(q).reshape(b, h4, w4, cfg.hidden_dim))
 
         out = {}

@@ -20,18 +20,17 @@ The dtypes follow busca_tpu's promotions: the sampling positions are
 float32, a bf16 map's corner values promote to float32 in the bilinear
 weights, and the product with the float32 weight is float32.
 
-``multi_scale_deformable_attention`` (TransCenter's MSDA mode) is ROADMAP
-Queue 1 item 19 and raises.
+``multi_scale_deformable_attention`` (TransCenter's MSDA mode, the
+deformable-DETR op) uses the same sampler over each level's per-head maps
+and accumulates the weighted samples level by level in float32.
 """
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
 import torch.nn.functional as F
-
-MSDA_TODO = ("multi_scale_deformable_attention (TransCenter's "
-             "sampling='deformable') is not ported yet: ROADMAP.md Queue 1, "
-             "item 19")
 
 
 def _out_size(n: int, k: int, stride: int, padding: int) -> int:
@@ -79,8 +78,46 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor,
     return out.reshape(*shape, c)
 
 
-def multi_scale_deformable_attention(*args, **kwargs):
-    raise NotImplementedError(MSDA_TODO)
+def multi_scale_deformable_attention(
+        value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+        sampling_locations: torch.Tensor,
+        attention_weights: torch.Tensor) -> torch.Tensor:
+    """MSDA forward (the MultiScaleDeformableAttention CUDA op of
+    deformable-DETR; busca_tpu's ``multi_scale_deformable_attention``).
+
+    Args:
+      value: ``[B, Len_v, H, D]``, the levels concatenated along ``Len_v``
+        in ``spatial_shapes`` order.
+      spatial_shapes: the levels' ``(h, w)``.
+      sampling_locations: ``[B, Len_q, H, L, P, 2]`` (x, y), in [0, 1] on
+        each level; ``grid_sample``'s ``align_corners=False`` rule (``src =
+        loc * size - 0.5``) and zero padding outside.
+      attention_weights: ``[B, Len_q, H, L, P]`` (softmaxed over L*P).
+    Returns:
+      ``[B, Len_q, H * D]`` float32: each level's samples (a bf16 value's
+      corners widened by the float32 bilinear factors) weighted and summed
+      into a float32 accumulator one level at a time, so that the peak is
+      one level's samples.
+    """
+    b, _, n_heads, d = value.shape
+    lq = sampling_locations.shape[1]
+    p = sampling_locations.shape[4]
+    acc = torch.zeros((b, n_heads, lq, d), dtype=torch.float32,
+                      device=value.device)
+    weights = attention_weights.permute(0, 2, 1, 3, 4).to(torch.float32)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        # one channels-last map per (batch, head): [B*H, h*w, D]
+        maps = value[:, start:start + h * w].permute(0, 2, 1, 3).reshape(
+            b * n_heads, h * w, d)
+        start += h * w
+        loc = sampling_locations[:, :, :, lvl].permute(0, 2, 1, 3, 4)
+        x = (loc[..., 0] * w - 0.5).reshape(b * n_heads, lq * p)
+        y = (loc[..., 1] * h - 0.5).reshape(b * n_heads, lq * p)
+        sampled = _sample_rows(maps, h, w, x, y).reshape(b, n_heads, lq, p, d)
+        acc = acc + torch.einsum("bhqpd,bhqp->bhqd", sampled,
+                                 weights[:, :, :, lvl])
+    return acc.permute(0, 2, 1, 3).reshape(b, lq, n_heads * d)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor,

@@ -78,7 +78,30 @@ Phases (each failure exits non-zero before the result line):
    launches and the third rounds counted; MOTDT with the ReID extractor on
    phase 8's crowd for 10 frames (K1 counted); SORT (host only) on the
    crowd's detections, its ms/frame and MOTA;
-10. the ``kernels`` JSON line, then the result line
+10. the tracking server (``busca_tpu_torch.serve.server.TrackingServer``)
+   on a unix socket in a thread of this script, driven by
+   ``TrackingClient``: ByteTrack + BUSCA (bf16) behind phase 7's YOLOX-X
+   over 20 frames, TransCenter + BUSCA behind phase 6's float32 detector
+   and CenterTrack + BUSCA behind phase 9's (through
+   ``CenterTrackRunnerDetector``) over 10 frames each.  The served replies
+   must equal the in-process serial loop's exactly (ids, tlwh, scores); a
+   stream snapshotted with an HMAC key (after frame 10, resp. 5) and
+   restored on a second server built with a fresh factory, over a new
+   connection, its detector reset first, must equal the unbroken stream
+   exactly, and a forged tag and an unsigned blob must be refused; round
+   trip vs loop ms/frame, the server's own ms, the blob's bytes, snapshot
+   and restore ms, K1's launches per served stream and K2's on
+   TransCenter's;
+11. TransCenter's exact deformable decoder: MSDA on the card against the
+   CPU at the MOT17 pyramid (query 160x272, levels down to 20x34, C=256, 8
+   heads, 9 points, seeded offsets that put some samples off every level);
+   the full-width ``TransCenterConfig.for_dataset("mot17",
+   sampling="deformable")`` detector with drawn offset and weight kernels:
+   its maps against the CPU at 128x224, its step at 640x1088 in float32
+   and bf16 (time, peak memory, device time by kind and MSDA's share, the
+   bf16 maps against float32), and 6 frames of the TransCenter loop with
+   BUSCA (K1 counted; K2 must not run);
+12. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -185,6 +208,31 @@ CT_OFFSET_GAIN = 0.5
 CT_HM_GAIN, CT_FIRST_DETS, CT_WH_BIAS = 3.0, 20, (7.5, 19.0)
 CT_OUT_THRESH, CT_TRACK_THRESH = 0.6, 0.5
 ALT_FRAMES = 10  # MOTDT with the extractor on the crowd's first frames
+# Phase 10: the tracking server on a unix socket in a thread of this
+# script.  The YOLOX-X stream (phase 7's detector) is snapshotted after
+# frame SV_CUT of SV_FRAMES; TransCenter's (phase 6's float32 detector) and
+# CenterTrack's (phase 9's) after SV_FEEDBACK_CUT of SV_FEEDBACK_FRAMES.
+# Snapshots are signed with SV_KEY.
+SV_FRAMES, SV_CUT = 20, 10
+SV_FEEDBACK_FRAMES, SV_FEEDBACK_CUT = 10, 5
+SV_KEY = b"chip-smoke-snapshot-key"
+SV_CONNECT_S = 10.0  # the longest wait for a server's socket
+# Phase 11: TransCenter's exact deformable decoder.  MSDA at the MOT17
+# pyramid (K2's: query 160x272, levels down to 20x34, C=256, 8 heads) with
+# MSDA_POINTS points per level, the offsets drawn with a std of
+# MSDA_OFFSET_PX level pixels around each query's own pixel centre (some
+# samples leave every level), card vs CPU within MSDA_TOL.  The full-width
+# deformable model's offset and attention-weight kernels, zero in the
+# published init, are drawn with std gain / sqrt(fan_in): the offsets then
+# spread by about TC_DEFORM_OFFSET_GAIN level pixels and the weights'
+# logits by about TC_DEFORM_WEIGHT_GAIN.  TC_DEFORM_FRAMES frames of the
+# TransCenter loop run with the deformable detector.
+MSDA_POINTS, MSDA_OFFSET_PX, MSDA_TOL = 9, 3.0, 1e-5
+# the deformable model's maps, card vs CPU, max |diff|, float32 with TF32
+# off; the smoke also reads the gap with TF32 on, which this bound must catch
+TC_DEFORM_MAP_TOL = 1e-4
+TC_DEFORM_OFFSET_GAIN, TC_DEFORM_WEIGHT_GAIN = 2.0, 1.0
+TC_DEFORM_FRAMES = 6
 # a stream hold lasts three times the host time it covers, and at least
 # this long: a busy host's enqueue must not outrun it
 HOLD_MIN_S = 0.25
@@ -953,12 +1001,17 @@ def profile_step(step, step_ms, reps=3, label="detector step",
     return by_kind
 
 
-def check_against_cpu(det, device):
+def check_against_cpu(det, device, label="TransCenter", tol=TC_MAP_TOL,
+                      tf32_control=False):
     """The float32 detector's five maps against the same model on the CPU
-    at TC_CPU_SIZE."""
+    at TC_CPU_SIZE: max |diff| within ``tol``.  With ``tf32_control``, the
+    gap once more with TF32 on (the card's default, which
+    ``set_card_precision`` turns off), which must exceed ``tol``: the bound
+    catches a TF32 leak."""
     import torch
 
     from busca_tpu_torch.models.transcenter import TransCenterDETR
+    from busca_tpu_torch.utils.device import set_card_precision
 
     cpu_model = TransCenterDETR(det.config)
     cpu_model.load_state_dict(
@@ -972,19 +1025,36 @@ def check_against_cpu(det, device):
             torch.rand((1, h // down, w // down, 1), generator=g))
     with torch.no_grad():
         want = cpu_model(*args)
-        got = det.model(*(a.to(device) for a in args))
-    torch.cuda.synchronize()
-    for k in want:
-        check(got[k].shape == want[k].shape, f"map {k} shape")
-        check(bool(torch.isfinite(got[k]).all()), f"map {k} non-finite")
-        err = float((got[k].cpu() - want[k]).abs().max())
-        print(f"TransCenter card vs CPU at {h}x{w}, map {k} "
-              f"{tuple(got[k].shape)}: max|diff| {err:.3g} "
-              f"(tol {TC_MAP_TOL})")
-        check(err <= TC_MAP_TOL, f"card and CPU disagree on {k}: {err}")
+
+    def gaps():
+        with torch.no_grad():
+            got = det.model(*(a.to(device) for a in args))
+        torch.cuda.synchronize()
+        out = {}
+        for k in want:
+            check(got[k].shape == want[k].shape, f"map {k} shape")
+            check(bool(torch.isfinite(got[k]).all()), f"map {k} non-finite")
+            out[k] = float((got[k].cpu() - want[k]).abs().max())
+        return out
+
+    for k, err in gaps().items():
+        print(f"{label} card vs CPU at {h}x{w}, map {k} "
+              f"{tuple(want[k].shape)}: max|diff| {err:.3g} (tol {tol})")
+        check(err <= tol, f"card and CPU disagree on {k}: {err}")
+    if not tf32_control:
+        return
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = max(gaps().values())
+    finally:
+        set_card_precision()
+    print(f"{label} card vs CPU with TF32 on: max|diff| {tf32:.3g} over the "
+          f"five maps (tol {tol})")
+    check(tf32 > tol, f"TF32's gap {tf32} is within {tol}")
 
 
-def check_against_float32(det, ref, frame):
+def check_against_float32(det, ref, frame, label="TransCenter"):
     """The bf16 detector's five maps against the float32 detector's (the
     same weights) on the card, at the test size on ``frame``'s canvas as its
     own previous frame: max |diff| over the float32 map's largest
@@ -1008,7 +1078,7 @@ def check_against_float32(det, ref, frame):
         g, w = got[k].float(), want[k]
         share = float((g - w).abs().max() / w.abs().max())
         mean = float((g - w).abs().mean() / w.abs().mean())
-        print(f"TransCenter bf16 vs float32 on the card at {TC_TEST_SIZE}, "
+        print(f"{label} bf16 vs float32 on the card at {TC_TEST_SIZE}, "
               f"map {k} {tuple(g.shape)}: max|diff| {share:.4g} of the "
               f"map's scale, mean |diff| {mean:.4g} of its mean |value| "
               f"(tol {TC_BF16_TOL})")
@@ -1382,7 +1452,7 @@ def phase_yolox(device, engine):
           "before the step")
     profile_step(lambda: det.step(canvas), step_ms, label="YOLOX-X step")
     yolox_bf16_step(det, frames[0], canvas, xin, flops)
-    return runs["pipelined"][2]
+    return runs["pipelined"][2], det
 
 
 def yolox_rows_gap(cfg, state, xin):
@@ -2164,7 +2234,7 @@ def phase_centertrack(device, engine):
     share, the two other samplings' steps, then
     ``track_frames_centertrack`` with ``CenterTrackAdapter`` + BUSCA in
     ``engine``'s dtype over the dropout sequence at 1080x1920.  Returns
-    K1's launches over the loop."""
+    K1's launches over the loop and the detector."""
     import numpy as np
     import torch
 
@@ -2306,7 +2376,7 @@ def phase_centertrack(device, engine):
     check(k1 >= res.num_frames,
           f"K1 launched {k1} times, under one per frame")
     check(rounds.calls >= 1, "no third round ran in the CenterTrack loop")
-    return k1
+    return k1, det
 
 
 def phase_alternates(device, crowd):
@@ -2357,6 +2427,469 @@ def phase_alternates(device, crowd):
     return k1
 
 
+def loop_replies(res):
+    """A loop's results as the server's replies carry them: ``(frame id,
+    [{"id", "tlwh", "score"}])`` per frame."""
+    return [(fid, [{"id": int(i), "tlwh": [float(v) for v in t],
+                    "score": float(c)} for t, i, c in zip(tlwhs, ids, confs)])
+            for fid, tlwhs, ids, confs in res.results]
+
+
+def reply_tracks(replies):
+    return [(r["frame_id"], r["tracks"]) for r in replies]
+
+
+def first_difference(got, want):
+    return next((g[0] for g, w in zip(got, want) if g != w), None)
+
+
+def start_server(server, tag, connections):
+    """``server.serve_unix`` on a fresh socket path in a thread of this
+    script, for ``connections`` connections; returns the thread and a
+    connected client (the first connection)."""
+    import tempfile
+    import threading
+
+    from busca_tpu_torch.serve.server import TrackingClient
+
+    path = os.path.join(tempfile.mkdtemp(prefix="busca_serve_"),
+                        f"{tag}.sock")
+    check(len(path.encode()) < 100, f"socket path too long: {path}")
+    thread = threading.Thread(target=server.serve_unix, args=(path,),
+                              kwargs={"max_connections": connections},
+                              daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return thread, path, TrackingClient.connect_unix(path)
+        except (FileNotFoundError, ConnectionRefusedError):
+            check(thread.is_alive() and
+                  time.perf_counter() - t0 < SV_CONNECT_S,
+                  f"the server on {path} never came up")
+            time.sleep(0.02)
+
+
+def served_frames(client, frames, label, first=1):
+    """Sends ``frames``; returns the replies and each round trip's ms."""
+    replies, rtt = [], []
+    for i, frame in enumerate(frames):
+        t0 = time.perf_counter()
+        reply = client.frame(frame)
+        rtt.append((time.perf_counter() - t0) * 1e3)
+        check(reply.get("ok"), f"{label}: frame {first + i} failed: "
+              f"{reply.get('error')}")
+        replies.append(reply)
+    return replies, rtt
+
+
+def phase_server_stream(label, det, make_factory, frames, cut, filters,
+                        counters):
+    """One detector configuration through the port's ``TrackingServer``:
+    the in-process serial loop (``track_frames_with_detector``), the same
+    frames served over a unix socket (replies equal the loop's exactly;
+    each kernel in ``counters`` counted over this served stream), then a
+    stream snapshotted after ``cut`` frames with SV_KEY, refused forged and
+    unsigned, and restored on a second server built with a fresh factory
+    over a new connection, its detector reset first (its state must come
+    from the blob): the restored frames must equal the unbroken stream's.
+    Returns the served stream's launches per counter."""
+    import threading
+
+    import numpy as np
+
+    from busca_tpu_torch.eval.detector import track_frames_with_detector
+    from busca_tpu_torch.serve.server import TrackingClient, TrackingServer
+
+    min_area, vthresh = filters
+    n = len(frames)
+    loop_det = SerialOnly(det) if hasattr(det, "detect_async") else det
+
+    def loop(out):
+        if hasattr(det, "reset"):
+            det.reset()
+        out.append(track_frames_with_detector(
+            loop_det, make_factory()(), frames, name=label,
+            min_box_area=min_area, vertical_thresh=vthresh))
+        return out[-1]
+
+    res = loop([])
+    loop_ms = 1e3 / res.fps
+    want = loop_replies(res)
+    # the same loop on a worker thread, as the server runs it
+    threaded = []
+    worker = threading.Thread(target=loop, args=(threaded,))
+    worker.start()
+    worker.join()
+    check(threaded and loop_replies(threaded[0]) == want,
+          f"{label}: the loop on a worker thread differs")
+    stages = ", ".join(
+        f"{where}: {1e3 / r.fps:.2f} ms/frame (detector "
+        f"{r.stage_times['detector_s'] * 1e3 / n:.2f}, tracker "
+        f"{r.stage_times['tracker_s'] * 1e3 / n:.2f})"
+        for where, r in (("main thread", res),
+                         ("a worker thread", threaded[0])))
+    print(f"server {label}: the in-process serial loop on the {stages}")
+
+    server = TrackingServer(det, make_factory(), min_box_area=min_area,
+                            vertical_thresh=vthresh, snapshot_key=SV_KEY)
+    thread, path, client = start_server(server, label, 2)
+    check(client.start(label)["ok"], f"{label}: start failed")
+    for c in counters:
+        c.launches = 0
+    replies, rtt = served_frames(client, frames, label)
+    launches = [c.launches for c in counters]
+    client.stop()
+    got = reply_tracks(replies)
+    check(got == want, f"{label}: the served replies differ from the "
+          f"in-process loop's from frame {first_difference(got, want)}")
+    server_ms = [r["ms"] for r in replies]
+    n_tracks = [len(t) for _, t in got]
+    counts = ", ".join(f"{c.__name__} launches {k}"
+                       for c, k in zip(counters, launches))
+    # the first frame of a server thread also creates that thread's cuBLAS
+    # and cuDNN handles: the steady state is frames 2 on
+    steady, own = np.mean(rtt[1:]), np.mean(server_ms[1:])
+    print(f"server {label} ({n} frames of {frames[0].shape[0]}x"
+          f"{frames[0].shape[1]} over a unix socket): round trip "
+          f"{np.mean(rtt):.2f} ms/frame (median {np.median(rtt):.2f}; frame "
+          f"1 {rtt[0]:.2f}, frames 2-{n} {steady:.2f}), the server's own ms "
+          f"{np.mean(server_ms):.2f} (frame 1 {server_ms[0]:.2f}, frames "
+          f"2-{n} {own:.2f}), the socket and the reply {steady - own:.2f}; "
+          f"the in-process serial loop {loop_ms:.2f} ms/frame (round trip "
+          f"{np.mean(rtt) - loop_ms:+.2f}, frames 2-{n} "
+          f"{steady - loop_ms:+.2f}); replies equal the loop's on every "
+          f"frame; output tracks per frame {n_tracks}; {counts}")
+    check(sum(n_tracks[cut:]) > 0, f"{label}: no track after frame {cut}")
+
+    # the interrupted stream: `cut` frames, a snapshot, the rest elsewhere
+    client = TrackingClient.connect_unix(path)
+    check(client.start(label)["ok"], f"{label}: start failed")
+    served_frames(client, frames[:cut], label)
+    t0 = time.perf_counter()
+    header, blob = client.snapshot()
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    check(header.get("frame_id") == cut, f"{label}: snapshot at frame "
+          f"{header.get('frame_id')}, not {cut}")
+    client.stop()
+    thread.join(timeout=60)
+    check(not thread.is_alive(), f"{label}: the first server did not stop")
+    if hasattr(det, "reset"):
+        det.reset()
+    server_b = TrackingServer(det, make_factory(), min_box_area=min_area,
+                              vertical_thresh=vthresh, snapshot_key=SV_KEY)
+    thread, _, client = start_server(server_b, label + "_b", 1)
+    forged = bytearray(blob)
+    forged[len(blob) // 2] ^= 0x01
+    reply = client.restore(bytes(forged))
+    check(not reply["ok"] and "HMAC" in reply["error"],
+          f"{label}: a forged blob was not refused: {reply}")
+    reply = client.restore(blob[40:])  # the payload without its envelope
+    check(not reply["ok"] and "unsigned" in reply["error"],
+          f"{label}: an unsigned blob was not refused: {reply}")
+    t0 = time.perf_counter()
+    reply = client.restore(blob)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(reply["ok"] and reply["frame_id"] == cut,
+          f"{label}: restore failed: {reply}")
+    tail, _ = served_frames(client, frames[cut:], label, first=cut + 1)
+    client.stop()
+    thread.join(timeout=60)
+    check(not thread.is_alive(), f"{label}: the second server did not stop")
+    got_tail = reply_tracks(tail)
+    check(got_tail == got[cut:], f"{label}: the restored stream differs "
+          f"from the unbroken one from frame "
+          f"{first_difference(got_tail, got[cut:])}")
+    canvas = ""
+    if hasattr(det, "state_dict"):
+        canvas = (f", of it the detector's canvas "
+                  f"{det.state_dict()['pre_canvas'].nbytes} bytes")
+    print(f"server {label} snapshot after frame {cut}: blob {len(blob)} "
+          f"bytes ({len(blob) / 1e6:.3f} MB, HMAC-signed{canvas}); snapshot "
+          f"{snap_ms:.2f} ms, restore {restore_ms:.2f} ms (round trips); a "
+          f"forged tag and an unsigned blob refused; frames {cut + 1}-{n} "
+          f"on the second server equal the unbroken stream's")
+    return launches
+
+
+def phase_server(device, engine, yolox, transcenter, centertrack):
+    """Phase 10: the port's ``TrackingServer`` on the card, with ByteTrack +
+    BUSCA behind YOLOX-X, TransCenter + BUSCA and CenterTrack + BUSCA
+    (BUSCA in ``engine``'s dtype).  Returns K1's launches on each served
+    stream and K2's on TransCenter's."""
+    from busca_tpu_torch.eval.detector import CenterTrackRunnerDetector
+    from busca_tpu_torch.eval.run import make_tracker, shim_for_runner
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    frames = [seq.frame(t) for t in range(SV_FRAMES)]
+
+    def factories(name, thresh):
+        # CMC off: the card host has no cv2
+        kwargs = {"use_busca": True, "track_thresh": thresh,
+                  "use_camera_motion_compensation": False}
+
+        def make_factory():
+            def factory():
+                Track.reset_id_counter()
+                trk = make_tracker(name, kwargs, engine, CROP_HW)
+                return shim_for_runner(name, trk, crop_hw=CROP_HW)
+            return factory
+        return make_factory
+
+    out = {}
+    (out["server_yolox"],) = phase_server_stream(
+        "yolox", yolox, factories("byte", YX_TRACK_THRESH), frames, SV_CUT,
+        (100.0, 1.6), [crop_resize_cuda])
+    few = frames[:SV_FEEDBACK_FRAMES]
+    out["server_transcenter"], k2 = phase_server_stream(
+        "transcenter", transcenter,
+        factories("transcenter", TC_TRACK_THRESH), few, SV_FEEDBACK_CUT,
+        (100.0, 1.6), [crop_resize_cuda, local_tap_sum_cuda])
+    check(k2 == 12 * len(few), f"K2 launched {k2} times on the served "
+          f"TransCenter stream, not 12 per frame")
+    (out["server_centertrack"],) = phase_server_stream(
+        "centertrack", CenterTrackRunnerDetector(centertrack),
+        factories("centertrack", CT_TRACK_THRESH), few, SV_FEEDBACK_CUT,
+        (0.0, None), [crop_resize_cuda])
+    for key, k1 in out.items():
+        check(k1 >= SV_FEEDBACK_FRAMES, f"{key}: K1 launched {k1} times, "
+              "under one per frame")
+    return out, k2
+
+
+def msda_inputs(seed=11):
+    """MSDA's inputs at the MOT17 pyramid, on the CPU: a seeded value, each
+    query's own pixel centre plus offsets drawn with a std of MSDA_OFFSET_PX
+    level pixels, and softmaxed weights; and the share of samples off their
+    level."""
+    import torch
+
+    from busca_tpu_torch.models.transcenter import reference_points
+
+    levels, c, heads = K2_PYRAMIDS["mot17"]
+    g = torch.Generator().manual_seed(seed)
+    (h0, w0), nl = levels[0], len(levels)
+    lq, lv = h0 * w0, sum(h * w for h, w in levels)
+    value = torch.randn((1, lv, heads, c // heads), generator=g)
+    sizes = torch.tensor([(w, h) for h, w in levels], dtype=torch.float32)
+    off = torch.randn((1, lq, heads, nl, MSDA_POINTS, 2), generator=g)
+    loc = (reference_points(h0, w0, "cpu")[None, :, None, None, None, :]
+           + off * MSDA_OFFSET_PX / sizes[:, None, :])
+    weights = torch.randn((1, lq, heads, nl * MSDA_POINTS), generator=g)
+    weights = weights.softmax(-1).reshape(1, lq, heads, nl, MSDA_POINTS)
+    outside = ((loc < 0) | (loc > 1)).any(-1).float().mean(dim=(0, 1, 2, 4))
+    return levels, value, loc, weights, outside
+
+
+def msda_bytes(levels, value, loc, weights):
+    """The bytes MSDA must move (each input read once, the output written
+    once), and the float32 bytes of one corner's samples of level 0 in the
+    plain version."""
+    lq, heads = loc.shape[1], loc.shape[2]
+    d = value.shape[3]
+    out = lq * heads * d * 4
+    io = (value.numel() + loc.numel() + weights.numel()) * 4 + out
+    return io, lq * heads * MSDA_POINTS * d * 4
+
+
+def draw_deformable_weights(model, seed=12):
+    """Seeded non-zero offset and attention-weight kernels (zero in the
+    published init, which would sample each query's own pixel centre with
+    uniform weights and leave a broken gather unseen)."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            for part, gain in ((".offsets.weight", TC_DEFORM_OFFSET_GAIN),
+                               (".weights.weight", TC_DEFORM_WEIGHT_GAIN)):
+                if name.endswith(part):
+                    p.copy_(torch.randn(p.shape, generator=g).mul_(
+                        gain / math.sqrt(p.shape[1])).to(p.device))
+
+
+def deformable_step(det, label, frame, ref=None):
+    """The deformable detector's step at TC_TEST_SIZE: its time, peak
+    memory, device time by kind, and MSDA's device time inside it (the
+    step's 12 calls run again on their captured inputs).  bf16 maps are
+    held against ``ref``'s (float32) on the card."""
+    import torch
+
+    import busca_tpu_torch.models.transcenter as ttc
+
+    if ref is not None:
+        check_against_float32(det, ref, frame, "TransCenter deformable")
+    canvas, _ = det.prep(torch.as_tensor(frame).to(det.device))
+    down = det.config.down_ratio
+    pre_hm = torch.zeros((TC_TEST_SIZE[0] // down, TC_TEST_SIZE[1] // down,
+                          1), device=det.device)
+    step_ms = cuda_time_ms(lambda: det.step(canvas, canvas, pre_hm), reps=5,
+                           warmup=1)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    det.step(canvas, canvas, pre_hm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label} step (forward, decode, NMS) at {TC_TEST_SIZE}: "
+          f"{step_ms:.2f} ms back to back; peak memory {peak / 1e6:.1f} MB "
+          f"allocated, {(peak - held) / 1e6:.1f} MB above the "
+          f"{held / 1e6:.1f} MB held before the step")
+    by_kind = profile_step(lambda: det.step(canvas, canvas, pre_hm), step_ms,
+                           label=f"{label} step")
+    captured = []
+    msda = ttc.multi_scale_deformable_attention
+
+    def recording(*args):
+        captured.append(args)
+        return msda(*args)
+
+    ttc.multi_scale_deformable_attention = recording
+    try:
+        with torch.no_grad():
+            det.step(canvas, canvas, pre_hm)
+    finally:
+        ttc.multi_scale_deformable_attention = msda
+    calls = 2 * det.config.num_decoder_layers
+    check(len(captured) == calls, f"{label}: {len(captured)} MSDA calls in "
+          f"the step, not {calls}")
+    busy = sum(by_kind.values())
+    msda_ms = device_busy_ms(lambda: [msda(*a) for a in captured], reps=2)
+    share = f"{100 * msda_ms / busy:.1f}%" if busy else "not measured"
+    print(f"{label} step: the {calls} MSDA calls take {msda_ms:.2f} ms of "
+          f"device time ({msda_ms / calls:.2f} ms each), {share} of the "
+          f"step's {busy:.2f} ms")
+    del captured
+    return step_ms
+
+
+def phase_deformable(device, engine):
+    """Phase 11: TransCenter's exact deformable decoder.  MSDA on the card
+    against the CPU at the MOT17 pyramid; the full-width
+    ``sampling="deformable"`` model's maps against the CPU at TC_CPU_SIZE,
+    its step in float32 and bf16; then TC_DEFORM_FRAMES frames of the
+    TransCenter loop with BUSCA in ``engine``'s dtype.  Returns K1's
+    launches over the loop."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import (
+        TransCenterDetector,
+        track_frames_with_detector,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.models.transcenter import TransCenterConfig
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.ops.deform import multi_scale_deformable_attention
+    from busca_tpu_torch.ops.lma_cuda import local_tap_sum_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    levels, value, loc, weights, outside = msda_inputs()
+    t0 = time.perf_counter()
+    want = multi_scale_deformable_attention(value, levels, loc, weights)
+    cpu_s = time.perf_counter() - t0
+    args = (value.to(device), levels, loc.to(device), weights.to(device))
+    got = multi_scale_deformable_attention(*args)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == tuple(want.shape) and got.is_cuda,
+          f"MSDA output {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "MSDA non-finite")
+    err = float((got.cpu() - want).abs().max())
+    ms = cuda_time_ms(lambda: multi_scale_deformable_attention(*args),
+                      reps=10, warmup=2)
+    dev_ms = device_busy_ms(lambda: multi_scale_deformable_attention(*args))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    multi_scale_deformable_attention(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    io, corner = msda_bytes(levels, value, loc, weights)
+    heads, c = value.shape[2], value.shape[2] * value.shape[3]
+    print(f"MSDA at the MOT17 pyramid ({levels}, C={c}, {heads} heads, "
+          f"{MSDA_POINTS} points, "
+          f"offsets std {MSDA_OFFSET_PX} level px; samples off their level "
+          f"by level {np.round(outside.numpy(), 4).tolist()}): card vs CPU "
+          f"max|diff| {err:.3g} (tol {MSDA_TOL}); {ms:.2f} ms back to back, "
+          f"device busy {dev_ms:.2f} ms, {peak / 1e6:.1f} MB above the "
+          f"inputs at its peak; inputs and output {io / 1e6:.1f} MB (bound "
+          f"{io / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes), level 0's samples "
+          f"{corner / 1e6:.1f} MB per corner; the CPU's call {cpu_s:.2f} s")
+    check(float(outside.min()) > 0, "no MSDA sample left some level")
+    check(err <= MSDA_TOL, f"MSDA card and CPU disagree: {err}")
+    del args, got, want, value, loc, weights
+
+    cfg = TransCenterConfig.for_dataset("mot17", sampling="deformable")
+    t0 = time.perf_counter()
+    det = TransCenterDetector(cfg, test_size=TC_TEST_SIZE,
+                              out_thresh=TC_OUT_THRESH, device=device, seed=0)
+    calibrate_heads(det.model)
+    draw_deformable_weights(det.model)
+    n_params = sum(p.numel() for p in det.model.parameters())
+    print(f"TransCenter deformable build (PVTv2-b2, hidden {cfg.hidden_dim}, "
+          f"{cfg.num_decoder_layers} decoder layers of MSDA, {cfg.dec_heads} "
+          f"heads, {cfg.dec_n_points} points, {n_params} parameters; offset "
+          f"and weight kernels drawn, gains {TC_DEFORM_OFFSET_GAIN} / "
+          f"{TC_DEFORM_WEIGHT_GAIN}): {time.perf_counter() - t0:.2f} s")
+    check_against_cpu(det, device, "TransCenter deformable",
+                      tol=TC_DEFORM_MAP_TOL, tf32_control=True)
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    frames = [seq.frame(t) for t in range(TC_DEFORM_FRAMES)]
+    deformable_step(det, "TransCenter deformable float32", frames[0])
+    det16 = TransCenterDetector(
+        dataclasses.replace(cfg, dtype="bfloat16"),
+        state_dict=det.model.state_dict(), test_size=TC_TEST_SIZE,
+        out_thresh=TC_OUT_THRESH, device=device)
+    deformable_step(det16, "TransCenter deformable bf16", frames[0], det)
+    del det16
+
+    tracker = make_tracker(
+        "transcenter", {"use_busca": True, "track_thresh": TC_TRACK_THRESH,
+                        "use_camera_motion_compensation": False},
+        engine, CROP_HW)
+    det.reset()
+    Track.reset_id_counter()
+    crop_resize_cuda.launches = 0
+    local_tap_sum_cuda.launches = 0
+    res = track_frames_with_detector(det, tracker, frames,
+                                     name="synthetic-1080p")
+    k1, k2 = crop_resize_cuda.launches, local_tap_sum_cuda.launches
+    n_tracks = [len(r[2]) for r in res.results]
+    det_ms = res.stage_times["detector_s"] * 1e3 / res.num_frames
+    print(f"TransCenter deformable loop ({FRAME_HW[0]}x{FRAME_HW[1]}, "
+          f"{res.num_frames} frames, BUSCA {engine.config.dtype}): detector "
+          f"{det_ms:.2f} ms/frame, total {1e3 / res.fps:.2f} ms/frame; "
+          f"output tracks per frame {n_tracks}; K1 launches {k1}, K2 "
+          f"launches {k2}")
+    check(sum(n_tracks) > 0, "the deformable TransCenter loop output no "
+          "track")
+    check(k1 >= res.num_frames, f"the deformable loop launched K1 {k1} "
+          "times, under one per frame")
+    check(k2 == 0, f"the deformable decoder launched K2 {k2} times")
+    return k1
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2397,20 +2930,27 @@ def main() -> int:
             device, engine, k2["kernel_ms"])
         k1_tc16, k2["bf16"]["launches"], _ = phase_transcenter(
             device, engine16, k2["bf16"]["kernel_ms"], "bfloat16", tc32)
-        del tc32
-        k1_yolox = phase_yolox(device, engine16)
+        k1_yolox, yolox = phase_yolox(device, engine16)
         k1_ss, k1_ghost, crowd = phase_feature_trackers(device, engine16)
         t_phase = time.perf_counter()
-        k1_ct = phase_centertrack(device, engine16)
+        k1_ct, centertrack = phase_centertrack(device, engine16)
         k1_motdt = phase_alternates(device, crowd)
         print(f"phase 9: {time.perf_counter() - t_phase:.2f} s")
+        t_phase = time.perf_counter()
+        k1_served, k2_served = phase_server(device, engine16, yolox, tc32,
+                                            centertrack)
+        print(f"phase 10: {time.perf_counter() - t_phase:.2f} s")
+        del yolox, tc32, centertrack
+        t_phase = time.perf_counter()
+        k1_deformable = phase_deformable(device, engine16)
+        print(f"phase 11: {time.perf_counter() - t_phase:.2f} s")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: the canonical path (the pipelined YOLOX loop, BUSCA in
     # bf16); K1's count on each path is listed beside it; K2's are the
-    # TransCenter loops', the only paths that run it: float32 at the top,
-    # bf16 under "bf16"
+    # TransCenter paths', the only ones that run it: float32 (the loop and
+    # the served stream) at the top, bf16 under "bf16"
     k1["launches"] = k1_yolox
     k1["launches_by_path"] = {"byte_synthetic": k1_byte,
                               "transcenter_loop": k1_tc,
@@ -2419,7 +2959,12 @@ def main() -> int:
                               "strongsort_loop": k1_ss,
                               "ghost_loop": k1_ghost,
                               "centertrack_loop": k1_ct,
-                              "motdt_loop": k1_motdt}
+                              "motdt_loop": k1_motdt,
+                              **k1_served,
+                              "transcenter_deformable_loop": k1_deformable}
+    k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
+                              "server_transcenter": k2_served}
+    k2["launches"] += k2_served
     print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

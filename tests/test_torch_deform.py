@@ -139,8 +139,3 @@ def test_local_matches_jax_and_zero_offset_dcn(one_torch_thread,  # noqa
     dcn = td.deform_conv2d(nchw(x), nchw(zero), oihw(weight), nchw(mask),
                            torch.from_numpy(bias), stride=stride)
     close(got, dcn.numpy().transpose(0, 2, 3, 1))
-
-
-def test_msda_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        td.multi_scale_deformable_attention()

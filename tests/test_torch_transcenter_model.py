@@ -139,13 +139,6 @@ def test_decoder_layer(sampling, monkeypatch):
                     shapes), want)
 
 
-def test_deformable_sampling_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ttc.DecoderLayer(32, 4, sampling="deformable")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ttc.TransCenterDETR(ttc.TransCenterConfig.tiny(sampling="deformable"))
-
-
 # ------------------------------ the full model ------------------------------
 
 @pytest.fixture(scope="module")
