@@ -24,8 +24,13 @@ The model computes in ``config.dtype`` (busca_tpu's ``AssociationEngine``
 builds its model from the config); the crops are prepared in float32 and
 the ReID casts them at its entry (busca_tpu/models/reid.py:225).
 
-Batch mode only: ``reid_stats='frozen'|'auto'``, ``associate_many`` and the
-debug montage are not ported yet (ROADMAP.md Queue 1, item 7).
+:meth:`AssociationEngine.associate_many` scores several independent
+requests (one per lockstep sequence) in one model call, with BN statistics
+per request, so each request's numbers equal its own :meth:`associate`.
+
+Batch mode only: ``reid_stats='frozen'|'auto'`` (and with it the frozen
+branch of ``associate_many``) and the debug montage are not ported yet
+(ROADMAP.md Queue 1, items 7 and 24).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from busca_tpu_torch.utils.padding import next_pow2
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 INCOMPLETE_MEM_BBOX_TLWH = np.array([250.0, 250.0, 500.0, 500.0])
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, item 7): {}"
+_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, {}): {}"
 
 
 def _get_track_mem(track, seq_len: int, use_broader_memory: bool):
@@ -114,9 +119,11 @@ class AssociationEngine:
     ):
         if reid_stats != "batch":
             raise NotImplementedError(
-                _NOT_PORTED.format(f"reid_stats={reid_stats!r}"))
+                _NOT_PORTED.format("items 7 and 24",
+                                   f"reid_stats={reid_stats!r}"))
         if debug_dir is not None:
-            raise NotImplementedError(_NOT_PORTED.format("debug montage"))
+            raise NotImplementedError(
+                _NOT_PORTED.format("item 25", "debug montage"))
         if bank is not None and tuple(bank.crop_hw) != tuple(crop_hw):
             raise ValueError("bank crop_hw mismatch")
         if model.config.dtype != config.dtype:
@@ -162,20 +169,25 @@ class AssociationEngine:
 
     @torch.inference_mode()
     def _probs(self, mem_crops, can_crops, mem_boxes, can_boxes, mask,
-               normalize_ims, can_weights=None, can_gather=None
-               ) -> np.ndarray:
+               normalize_ims, can_weights=None, can_gather=None,
+               mem_group=None, can_group=None, num_groups=1) -> np.ndarray:
         """One model call; crops are device tensors, the rest numpy.
         Returns softmax probabilities ``[B, C + extras]`` on the host."""
+
+        def opt(x):
+            return None if x is None else self._tensor(x)
+
         logits = self.model(
             self._prep(mem_crops, normalize_ims),
             self._prep(can_crops, normalize_ims),
             self._tensor(mem_boxes),
             self._tensor(can_boxes),
             self._tensor(mask),
-            can_weights=None if can_weights is None
-            else self._tensor(can_weights),
-            can_gather=None if can_gather is None
-            else self._tensor(can_gather),
+            can_weights=opt(can_weights),
+            can_gather=opt(can_gather),
+            mem_group=opt(mem_group),
+            can_group=opt(can_group),
+            num_groups=num_groups,
         )
         return torch.softmax(logits, dim=-1).cpu().numpy()
 
@@ -211,8 +223,151 @@ class AssociationEngine:
             keep_highest_value=keep_highest_value,
         )
 
-    def associate_many(self, requests, **kwargs):
-        raise NotImplementedError(_NOT_PORTED.format("associate_many"))
+    def associate_many(
+        self,
+        requests: Sequence,
+        *,
+        use_broader_memory: bool = True,
+        select_highest_candidate: bool = True,
+        highest_candidate_minimum_thresh: Optional[float] = None,
+        keep_highest_value: bool = False,
+        normalize_ims: bool = True,
+    ):
+        """Several independent association calls in one model call.
+
+        ``requests``: ``(tracks, dets, dists_matrix_or_None,
+        extra_kalman_candidates)`` each, e.g. one per lockstep sequence.  BN
+        statistics are per request (``BuscaModel``'s ``mem_group``), so each
+        request's numbers equal its own :meth:`associate` call.  Returns one
+        ``(probs_matrix, reliable)`` or ``(None, None)`` per request, in
+        order.
+        """
+        results = [(None, None)] * len(requests)
+        preps = []
+        for i, (tracks, dets, dists, kal) in enumerate(requests):
+            req = self._prep_request(
+                tracks, dets, dists,
+                use_broader_memory=use_broader_memory,
+                extra_kalman_candidates=kal,
+            )
+            if req is not None:
+                preps.append((i, req, len(dets) + len(kal)))
+        if not preps:
+            return results
+        post_kw = dict(
+            select_highest_candidate=select_highest_candidate,
+            highest_candidate_minimum_thresh=highest_candidate_minimum_thresh,
+            keep_highest_value=keep_highest_value,
+        )
+        t_total = sum(req[8] for _, req, _ in preps)
+        if (len(preps) == 1 or t_total > self.buckets[-1]
+                or not self.dedup_candidates):
+            # one live request, a batch above the largest bucket, or the
+            # duplicated path: the prepped requests one by one
+            # (busca_tpu/assoc/engine.py:651-669)
+            for i, req, ndt in preps:
+                probs = self._score_prepped(req, normalize_ims)
+                (_, _, reliable, det_inds, _, _, num_avail, _, _) = req
+                results[i] = self._postprocess(
+                    probs, reliable, det_inds, num_avail, ndt, **post_kw)
+            return results
+        probs, spans = self._score_grouped(preps, normalize_ims)
+        for i, row0, t_count, reliable, det_inds, num_avail, ndt in spans:
+            results[i] = self._postprocess(
+                probs[row0:row0 + t_count], reliable, det_inds, num_avail,
+                ndt, **post_kw)
+        return results
+
+    def _score_grouped(self, preps, normalize_ims):
+        """One model call over every prepped request, the track batch
+        padded to its bucket and ``next_pow2(r)`` BN groups per kind.  Each
+        request has its own unique candidate units and its own zero
+        "missing slot" unit, so its weights land in its own group.  Returns
+        the raw probabilities and ``(i, row0, t_count, reliable, det_inds,
+        num_available, n_cols)`` per request."""
+        seq_len, c = self.seq_len, self.num_candidates
+        h, w = self.crop_hw
+        t_total = sum(req[8] for _, req, _ in preps)
+        b = self._bucket(t_total)
+        banked = self.banked
+        mem_entries: list = []
+        if not banked:
+            mem_crops = np.zeros((b, seq_len, h, w, 3), np.uint8)
+        mem_boxes = np.zeros((b, seq_len, 4), np.float32)
+        can_boxes = np.zeros((b, c, 4), np.float32)
+        mask = np.zeros(b, np.float32)
+        mem_group = np.zeros(b, np.int64)
+        gather = np.zeros((b, c), np.int64)
+        uniq_crops: List[Optional[np.ndarray]] = []
+        uniq_weights: List[float] = []
+        uniq_group: List[int] = []
+        spans = []
+        row = 0
+        for slot, (i, req, ndt) in enumerate(preps):
+            (m_crops, m_boxes, reliable, det_inds, c_boxes, unit_crop,
+             num_available, _d_count, t_count) = req
+            zero_idx = len(uniq_crops)
+            uniq_crops.append(None)
+            uniq_weights.append(0.0)
+            uniq_group.append(slot)
+            unit_to_idx = {}
+            for ti in range(t_count):
+                for ci, di in enumerate(det_inds[ti]):
+                    if di is None:
+                        uniq_weights[zero_idx] += 1.0
+                        gather[row + ti, ci] = zero_idx
+                        continue
+                    if di not in unit_to_idx:
+                        unit_to_idx[di] = len(uniq_crops)
+                        uniq_crops.append(unit_crop(di))
+                        uniq_weights.append(0.0)
+                        uniq_group.append(slot)
+                    ui = unit_to_idx[di]
+                    gather[row + ti, ci] = ui
+                    uniq_weights[ui] += 1.0
+            if banked:
+                mem_entries.extend(m_crops)
+            else:
+                mem_crops[row:row + t_count] = m_crops
+            mem_boxes[row:row + t_count] = m_boxes
+            can_boxes[row:row + t_count] = c_boxes
+            mask[row:row + t_count] = 1.0
+            mem_group[row:row + t_count] = slot
+            spans.append((i, row, t_count, reliable, det_inds,
+                          num_available, ndt))
+            row += t_count
+        u = len(uniq_crops)
+        u_pad = next_pow2(u, min_bucket=8)
+        w_arr = np.zeros(u_pad, np.float32)
+        w_arr[:u] = uniq_weights
+        g_arr = np.zeros(u_pad, np.int64)
+        g_arr[:u] = uniq_group
+        if banked:
+            flat: list = []
+            for e in mem_entries:
+                flat.extend(e if e is not None else [None] * seq_len)
+            flat.extend(uniq_crops)  # the zero units resolve to slot 0
+            slots = self.bank.resolve(flat)
+            n_mem = row * seq_len
+            mem_slots = np.zeros((b, seq_len), np.int64)
+            mem_slots[:row] = slots[:n_mem].reshape(row, seq_len)
+            uniq_slots = np.zeros(u_pad, np.int64)
+            uniq_slots[:u] = slots[n_mem:]
+            bank = self.bank.array
+            mem_t = bank[self._tensor(mem_slots)]
+            uniq_t = bank[self._tensor(uniq_slots)]
+        else:
+            uniq = np.zeros((u_pad, h, w, 3), np.uint8)
+            for ui, crop in enumerate(uniq_crops):
+                if crop is not None:
+                    uniq[ui] = crop
+            mem_t, uniq_t = self._tensor(mem_crops), self._tensor(uniq)
+        probs = self._probs(
+            mem_t, uniq_t, mem_boxes, can_boxes, mask, normalize_ims,
+            can_weights=w_arr, can_gather=gather, mem_group=mem_group,
+            can_group=g_arr, num_groups=next_pow2(len(preps)),
+        )
+        return probs, spans
 
     def _score_prepped(self, req, normalize_ims) -> np.ndarray:
         """Raw probabilities ``[T, C + extras]`` of one prepped request."""

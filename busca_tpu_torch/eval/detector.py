@@ -30,9 +30,14 @@ back and cannot pipeline.
 
 :class:`CenterTrackRunnerDetector` is CenterTrack's view for the tracking
 server (``serve/server.py``).  The stateful detectors' ``state_dict`` /
-``load_state_dict`` carry the previous canvas through a snapshot.  Lockstep
-batch-B (``_make_batch_step``, ``track_sequences_lockstep``) is ROADMAP item
-21.
+``load_state_dict`` carry the previous canvas through a snapshot.
+
+Lockstep evaluation across sequences: :meth:`YoloxDetector.
+detect_batch_async` runs one batch-B step for one frame of each of B
+same-resolution sequences (one pinned upload, K1 letterboxes each frame
+into its slice of one canvas batch, one forward, the postprocess per
+frame), and :func:`track_sequences_lockstep` drives B trackers with it,
+their BUSCA third rounds served by one grouped association per frame.
 """
 
 from __future__ import annotations
@@ -91,13 +96,16 @@ def rows_to_detector_output(out, valid, image, scale) -> DetectorOutput:
 
 
 def letterbox(frame: torch.Tensor, test_size: Tuple[int, int], fill: int,
-              boxes: dict) -> Tuple[torch.Tensor, float]:
+              boxes: dict, out: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, float]:
     """uint8 BGR frame ``[H, W, 3]`` -> the uint8 BGR canvas ``[test_h,
     test_w, 3]`` (the frame resized by ``r = min(test_h / H, test_w / W)``
     through the crop op, INTER_LINEAR and rounded, at the top left; ``fill``
     elsewhere) and ``r``.  ``boxes`` caches the full-frame box per frame
     size and device; it is made with device ops, so no call copies from the
-    host."""
+    host.  ``out``, a uint8 ``[test_h, test_w, 3]`` view filled with
+    ``fill`` (one slice of a canvas batch), receives the resized frame
+    instead of a new canvas."""
     fh, fw = int(frame.shape[0]), int(frame.shape[1])
     th, tw = test_size
     r = min(th / fh, tw / fw)
@@ -114,8 +122,8 @@ def letterbox(frame: torch.Tensor, test_size: Tuple[int, int], fill: int,
         frame, boxes[key], out_hw=(rh, rw), normalize=False, bgr_input=True,
         rgb_output=False, quantize_uint8=True,
     )[0]
-    canvas = torch.full((th, tw, 3), fill, dtype=torch.uint8,
-                        device=frame.device)
+    canvas = out if out is not None else torch.full(
+        (th, tw, 3), fill, dtype=torch.uint8, device=frame.device)
     # the quantized crop holds integers in 0..255: the cast is exact
     canvas[:rh, :rw] = resized.to(torch.uint8)
     return canvas, r
@@ -160,7 +168,8 @@ class _Pending:
     """An enqueued step: the result rows, ``valid`` and the NMS's
     ``converged`` flag (pinned host copies on the card), the event recorded
     after their copies, the device canvas, the scale, and every buffer the
-    step or its copies still read."""
+    step or its copies still read.  A batch step's handle has a leading
+    frame dimension on each tensor."""
 
     rows: torch.Tensor
     valid: torch.Tensor
@@ -304,33 +313,48 @@ class YoloxDetector:
             ready.record(self._copy_stream)
         return _Upload(dev, ready, pinned)
 
+    def _readable(self, frames):
+        """Frames (a :meth:`put_frame` upload, host arrays or a tensor on
+        the device) as an upload the compute stream may read: a host input
+        is uploaded, and the compute stream waits for the upload's event.
+        Returns the upload and the compute stream (None on the CPU)."""
+        if not isinstance(frames, _Upload):
+            if torch.is_tensor(frames) and frames.device == self.device:
+                frames = _Upload(frames, None, None)
+            else:
+                frames = self.put_frame(np.asarray(frames))
+        stream = (torch.cuda.current_stream(self.device)
+                  if self._copy_stream is not None else None)
+        if frames.ready is not None:
+            stream.wait_event(frames.ready)
+            # the copy stream allocated it; the compute stream reads it
+            frames.tensor.record_stream(stream)
+        return frames, stream
+
+    @staticmethod
+    def _copy_out(stream, results):
+        """Non-blocking copies of a step's fixed-size ``results`` into
+        pinned host buffers and the event recorded after them; on the CPU
+        the results themselves and no event."""
+        if stream is None:
+            return list(results), None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in results]
+        for h, t in zip(host, results):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return host, done
+
     def detect_async(self, frame) -> _Pending:
         """Enqueue the step for one frame (a :meth:`put_frame` upload, a
         host array or a tensor on the device) and the non-blocking copies of
         its result into pinned buffers; returns a handle for :meth:`wait`.
         On the card nothing here waits for the device."""
-        if not isinstance(frame, _Upload):
-            if torch.is_tensor(frame) and frame.device == self.device:
-                frame = _Upload(frame, None, None)
-            else:
-                frame = self.put_frame(np.asarray(frame))
-        stream = (torch.cuda.current_stream(self.device)
-                  if self._copy_stream is not None else None)
-        if frame.ready is not None:
-            stream.wait_event(frame.ready)
-            # the copy stream allocated it; the compute stream reads it
-            frame.tensor.record_stream(stream)
+        frame, stream = self._readable(frame)
         canvas, r = self.prep(frame.tensor)
         rows, valid, converged, pred = self.step(canvas)
-        if stream is None:
-            return _Pending(rows, valid, converged, None, canvas, r, pred,
-                            (frame,))
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in (rows, valid, converged)]
-        for h, t in zip(host, (rows, valid, converged)):
-            h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        host, done = self._copy_out(stream, (rows, valid, converged))
         return _Pending(*host, done, canvas, r, pred,
                         (frame, rows, valid, converged))
 
@@ -341,23 +365,89 @@ class YoloxDetector:
         finished here with the iterated NMS (the same fixed point)."""
         if handle.done is not None:
             handle.done.synchronize()
-        rows, valid = handle.rows, handle.valid
-        if not bool(handle.converged):
+        return self._output(handle.rows, handle.valid, handle.converged,
+                            handle.pred, handle.canvas, handle.scale)
+
+    def _output(self, rows, valid, converged, pred, canvas, scale):
+        """One frame's host rows as a :class:`DetectorOutput`; a frame whose
+        NMS had not converged is finished with the iterated NMS on its
+        decoded rows ``pred``."""
+        if not bool(converged):
             from busca_tpu_torch.ops.nms import yolox_postprocess
 
             self.nms_fallbacks += 1
             with torch.no_grad():
                 rows, valid = yolox_postprocess(
-                    handle.pred, self.config.num_classes, self.conf_thresh,
+                    pred, self.config.num_classes, self.conf_thresh,
                     self.nms_thresh, self.max_outputs, self.pre_nms_topk)
             rows, valid = rows.cpu(), valid.cpu()
-        return rows_to_detector_output(rows.numpy(), valid.numpy(),
-                                       handle.canvas, handle.scale)
+        return rows_to_detector_output(rows.numpy(), valid.numpy(), canvas,
+                                       scale)
 
     def detect(self, frame) -> DetectorOutput:
         """One uint8 BGR frame (original resolution), or a
         :meth:`put_frame` upload."""
         return self.wait(self.detect_async(frame))
+
+    # ------------------------------------------------------ lockstep --
+    @torch.no_grad()
+    def batch_step(self, frames: torch.Tensor):
+        """The lockstep batch step for uint8 BGR frames ``[B, H, W, 3]`` on
+        the device, enqueued without a host sync: each frame letterboxed
+        by the crop op (K1 on the card, one call per frame) into its slice
+        of one canvas batch, the normalization and the forward over the
+        batch, the postprocess per frame.  Returns ``(rows [B, K, 7],
+        valid [B, K], converged [B], preds, canvases, r)``."""
+        from busca_tpu_torch.ops.nms import NMS_STEPS, yolox_postprocess
+
+        th, tw = self.test_size
+        canvases = torch.full((frames.shape[0], th, tw, 3), PAD_VALUE,
+                              dtype=torch.uint8, device=frames.device)
+        r = None
+        for frame, canvas in zip(frames, canvases):
+            _, r = letterbox(frame, self.test_size, PAD_VALUE, self._boxes,
+                             out=canvas)
+        x = normalize_canvas(canvases, self._mean, self._std)
+        preds = self.model(x.permute(0, 3, 1, 2))
+        outs = [yolox_postprocess(
+            pred, self.config.num_classes, self.conf_thresh,
+            self.nms_thresh, self.max_outputs, self.pre_nms_topk,
+            nms_steps=NMS_STEPS) for pred in preds]
+        rows, valid, converged = (torch.stack(t) for t in zip(*outs))
+        return rows, valid, converged, preds, canvases, r
+
+    def detect_batch_async(self, frames_bgr) -> _Pending:
+        """Enqueue the batch step for one frame of each of B same-resolution
+        sequences (a ``[B, H, W, 3]`` array or sequence of frames, a
+        :meth:`put_frame` upload of one, or a device tensor) and the
+        non-blocking copies of its results into pinned buffers; returns a
+        handle for :meth:`wait_batch`.  The frames go up as one pinned
+        upload on the copy stream.  On the card nothing here waits for the
+        device."""
+        frames, stream = self._readable(frames_bgr)
+        rows, valid, converged, preds, canvases, r = self.batch_step(
+            frames.tensor)
+        host, done = self._copy_out(stream, (rows, valid, converged))
+        return _Pending(*host, done, canvases, r, preds,
+                        (frames, rows, valid, converged))
+
+    def wait_batch(self, handle: _Pending) -> list:
+        """Wait for a :meth:`detect_batch_async` handle's copies and build
+        one :class:`DetectorOutput` per frame; frame i's ``image`` is
+        ``handle.canvas[i]``, a contiguous view on the device.  Each frame
+        whose NMS had not reached its fixed point is finished here on its
+        own, as :meth:`wait` does."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        return [self._output(handle.rows[i], handle.valid[i],
+                             handle.converged[i], handle.pred[i],
+                             handle.canvas[i], handle.scale)
+                for i in range(handle.rows.shape[0])]
+
+    def detect_batch(self, frames_bgr) -> list:
+        """One frame of each of B same-resolution sequences in one device
+        step; one :class:`DetectorOutput` per frame."""
+        return self.wait_batch(self.detect_batch_async(frames_bgr))
 
 
 def read_pth_state_dict(path: str) -> dict:
@@ -671,6 +761,123 @@ def track_frames_with_detector(
         name, len(results), results, dt,
         stage_times={"detector_s": det_s, "tracker_s": trk_s},
     )
+
+
+def track_sequences_lockstep(
+    detector,
+    trackers,
+    frame_iters,
+    names=None,
+    min_box_area: float = 100.0,
+    vertical_thresh: Optional[float] = 1.6,
+):
+    """Track B same-resolution sequences in lockstep, one frame of each per
+    detector call (busca_tpu's multi-sequence throughput mode).
+
+    The batch of lockstep frame t+1 is enqueued
+    (``detector.detect_batch_async``) before frame t's results are read, so
+    the trackers' host work runs while the device computes.  A sequence
+    that has ended is fed its last frame again, so the batch keeps its
+    shape, and its outputs are dropped.  Per frame: phase 0 starts every
+    tracker's ECC solve on the shared CMC pool (``cmc_prefetch``); phase 1
+    runs every update up to its BUSCA third round (``update_deferred``);
+    phase 2 serves the suspended rounds with one grouped association per
+    engine (:func:`~busca_tpu_torch.trackers.base.service_deferred_updates`).
+    A detector with only ``detect_batch`` runs unpipelined.
+
+    Returns one :class:`~busca_tpu_torch.eval.runner.SequenceResult` per
+    sequence, each with its share of the wall time (its frames over all
+    frames) and of ``stage_times`` (``detector_s``: waiting for the batch,
+    ``tracker_s``: the three phases).
+    """
+    from busca_tpu_torch.eval.runner import (
+        SequenceResult,
+        filter_output_tracks,
+    )
+    from busca_tpu_torch.trackers.base import service_deferred_updates
+
+    iters = [iter(f) for f in frame_iters]
+    b = len(iters)
+    names = names or [f"seq{i}" for i in range(b)]
+    current = [next(it, None) for it in iters]
+    if any(f is None for f in current):
+        raise ValueError("every sequence needs at least one frame")
+    results = [[] for _ in range(b)]
+    frame_ids = [0] * b
+    dispatch = getattr(detector, "detect_batch_async", None)
+    if dispatch is None:
+        def dispatch(f):
+            return detector.detect_batch(f)
+
+        def wait(h):
+            return h
+    else:
+        wait = detector.wait_batch
+    det_s = trk_s = 0.0
+    t0 = time.perf_counter()
+    inflight = (dispatch(np.stack([np.asarray(f) for f in current])),
+                [True] * b)
+    while inflight is not None:
+        handle, active = inflight
+        # enqueue the next batch before reading this one
+        nxt_active = list(active)
+        for i in range(b):
+            if not nxt_active[i]:
+                continue
+            nf = next(iters[i], None)
+            if nf is None:
+                nxt_active[i] = False
+            else:
+                current[i] = nf
+        inflight = None
+        if any(nxt_active):
+            inflight = (dispatch(np.stack([np.asarray(f) for f in current])),
+                        nxt_active)
+        t_det = time.perf_counter()
+        dets = wait(handle)
+        t_trk = time.perf_counter()
+        det_s += t_trk - t_det
+        # phase 0: every sequence's ECC solve starts on the CMC pool
+        for i in range(b):
+            if active[i] and hasattr(trackers[i], "cmc_prefetch"):
+                trackers[i].cmc_prefetch(dets[i].image)
+        # phase 1: each update up to its BUSCA third round
+        onlines = [None] * b
+        pending = []
+        for i in range(b):
+            if not active[i]:
+                continue
+            d = dets[i]
+            frame_ids[i] += 1
+            args = (d.boxes_tlbr / d.scale, d.scores, d.scale, d.image)
+            if hasattr(trackers[i], "update_deferred"):
+                gen = trackers[i].update_deferred(*args)
+                try:
+                    pending.append((i, gen, next(gen)))
+                except StopIteration as e:
+                    onlines[i] = e.value
+            else:
+                onlines[i] = trackers[i].update(*args)
+        # phase 2: one grouped association serves every third round
+        if pending:
+            for i, out in service_deferred_updates(pending).items():
+                onlines[i] = out
+        for i in range(b):
+            if active[i]:
+                tlwhs, ids, confs = filter_output_tracks(
+                    onlines[i], min_box_area, vertical_thresh)
+                results[i].append((frame_ids[i], tlwhs, ids, confs))
+        trk_s += time.perf_counter() - t_trk
+    dt = time.perf_counter() - t0
+    total = max(sum(len(r) for r in results), 1)
+    out = []
+    for i in range(b):
+        share = len(results[i]) / total
+        out.append(SequenceResult(
+            names[i], len(results[i]), results[i], dt * share,
+            stage_times={"detector_s": det_s * share,
+                         "tracker_s": trk_s * share}))
+    return out
 
 
 def gaussian_radius(det_size: Tuple[float, float], min_overlap: float = 0.7):

@@ -23,6 +23,11 @@ Modes:
     ``--min-confidence`` filter, optional ``--ecc-json`` camera warps;
   - otherwise the cached-detection path: the sequence's ``det/det.txt``.
 
+  ``--lockstep`` runs the sequences frame by frame in step, each frame's
+  BUSCA third rounds served by one grouped association: with a YOLOX
+  ``--detector``, one batch step per frame of each same-resolution group;
+  also over ``det/det.txt`` and ``--npy-det``.
+
   StrongSORT, DeepSORT, GHOST and MOTDT take ReID features from a
   ``--reid-ckpt`` extractor run on each detection's crop (without one, a
   distinct placeholder per detection).  MOTChallenge result txts go under
@@ -45,6 +50,8 @@ Example::
         --test-h 128 --test-w 224 --device cpu
     python -m busca_tpu_torch.eval.run --mot-dir MOT17-05 \\
         --detector centertrack --tracker centertrack --use-busca
+    python -m busca_tpu_torch.eval.run --mot-dir MOT17-02 MOT17-04 \\
+        --detector yolox-x --use-busca --lockstep
 
 Without ``--busca-config`` the model is ``BuscaConfig()`` (ResNet-50,
 d=512, 4 layers, 4 heads, ff 1024); without ``--busca-ckpt`` its weights are
@@ -140,8 +147,9 @@ def make_tracker(name: str, tracker_kwargs: dict, engine, crop_hw=(384, 128),
     there."""
     if (tracker_kwargs.get("mem_cap") is not None
             and name not in MEM_CAP_TRACKERS):
-        raise ValueError(f"mem_cap only applies to trackers that store "
-                         f"appearance memory {MEM_CAP_TRACKERS}")
+        raise ValueError(f"--mem-cap only applies to trackers that store "
+                         f"appearance memory {MEM_CAP_TRACKERS}; --tracker "
+                         f"{name} keeps no crop memory")
 
     def config(cls, **defaults):
         known = {f.name for f in dataclasses.fields(cls)}
@@ -241,13 +249,37 @@ class FeatureShim:
             return self.feat_fn(crops)
         return np.eye(max(n, 1), 16)[:n]
 
-    def update(self, boxes, scores, scale, frame):
+    def _prepare(self, boxes, scale, frame):
+        """The frame on the extractor's device, the predict step, and the
+        detections' features."""
         if self.feat_fn is not None and frame is not None:
             frame = torch.as_tensor(frame).to(self.feat_fn.device)
         if self.call_predict:
             self.trk.predict()
-        feats = self._features(boxes, scale, frame)
+        return self._features(boxes, scale, frame), frame
+
+    def update(self, boxes, scores, scale, frame):
+        feats, frame = self._prepare(boxes, scale, frame)
         return self.trk.update(boxes, scores, feats, frame)
+
+    def cmc_prefetch(self, cur_frame):
+        """Forward the lockstep drivers' ECC prefetch to the wrapped
+        tracker, which owns the recipe and the warp hint."""
+        inner = getattr(self.trk, "cmc_prefetch", None)
+        return inner(cur_frame) if inner is not None else None
+
+    def update_deferred(self, boxes, scores, scale, frame):
+        """The wrapped tracker's deferred mode (the lockstep drivers' batched
+        third round); a tracker without one runs its plain update inside a
+        generator that yields nothing."""
+        if not hasattr(self.trk, "update_deferred"):
+            def gen():
+                return self.update(boxes, scores, scale, frame)
+                yield  # a generator that returns at once
+
+            return gen()
+        feats, frame = self._prepare(boxes, scale, frame)
+        return self.trk.update_deferred(boxes, scores, feats, frame)
 
 
 class CenterTrackShim:
@@ -263,6 +295,10 @@ class CenterTrackShim:
         prior heatmap (the serving loop's feedback hook; detector.py:143-156
         hands the tracker's tracks to the detector the same way)."""
         return self.trk.tracks
+
+    def cmc_prefetch(self, cur_frame):
+        """Forward the lockstep drivers' ECC prefetch to the adapter."""
+        return self.trk.cmc_prefetch(cur_frame)
 
     def update(self, boxes, scores, scale, frame):
         dicts = [{"bbox": b, "score": s, "class": 1}
@@ -388,8 +424,6 @@ def postprocess_result(res, out_path, link_model=None, gsi=False):
 # flags of busca_tpu's CLI whose code is not ported yet, and the ROADMAP.md
 # Queue 1 item that ports it
 LATER_FLAGS = {
-    "lockstep": 21,
-    "mem_cap": 21,
     "detector_artifact": 20,
     "det_ap": 24,
     "online_visualization": 25,
@@ -452,13 +486,7 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
     import itertools
 
     from busca_tpu_torch.eval import mot
-    from busca_tpu_torch.eval.metrics import evaluate_hota
-    from busca_tpu_torch.eval.runner import (
-        evaluate_sequences_parallel,
-        global_metrics,
-        results_to_pred,
-        run_mot_sequence,
-    )
+    from busca_tpu_torch.eval.runner import run_mot_sequence
 
     eval_inputs = {}
     for seq_dir in args.mot_dir:
@@ -511,33 +539,147 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
                 seq_dir, shim_for_runner(args.tracker, tracker,
                                          feature_extractor, args.crop_hw),
                 output_path=out_path, max_frames=args.max_frames)
-        if args.gsi or link_model is not None:
-            res = postprocess_result(res, out_path, link_model, args.gsi)
-        stage = ""
-        if res.stage_times:
-            stage = " (" + ", ".join(
-                f"{k.rstrip('_s')} {v / max(res.num_frames, 1) * 1e3:.1f} "
-                "ms/frame" for k, v in res.stage_times.items()) + ")"
-        print(f"{name}: {res.num_frames} frames @ {res.fps:.1f} fps{stage}")
-        gt_path = os.path.join(seq_dir, "gt", "gt.txt")
-        if os.path.exists(gt_path):
-            gt = mot.read_gt(gt_path)
-            pred = results_to_pred(res)
-            eval_inputs[name] = (gt, pred)
-            if args.hota:
-                h = evaluate_hota(gt, pred)
-                print("  " + "  ".join(
-                    f"{label} {h[label.lower()] * 100:.3f}"
-                    for label in ("HOTA", "DetA", "AssA", "DetRe", "DetPr",
-                                  "AssRe", "AssPr", "LocA")))
+        report_sequence(args, seq_dir, res, out_path, link_model,
+                        eval_inputs)
+    return evaluate_all(args, eval_inputs)
+
+
+def report_sequence(args, seq_dir, res, out_path, link_model, eval_inputs,
+                    note=""):
+    """A sequence's written results linked and smoothed when asked, its
+    line printed, and its gt and predictions added to ``eval_inputs``
+    (``--hota`` prints its HOTA)."""
+    from busca_tpu_torch.eval import mot
+    from busca_tpu_torch.eval.metrics import evaluate_hota
+    from busca_tpu_torch.eval.runner import results_to_pred
+
+    name = os.path.basename(seq_dir.rstrip("/"))
+    if args.gsi or link_model is not None:
+        res = postprocess_result(res, out_path, link_model, args.gsi)
+    stage = ""
+    if res.stage_times:
+        stage = " (" + ", ".join(
+            f"{k.rstrip('_s')} {v / max(res.num_frames, 1) * 1e3:.1f} "
+            "ms/frame" for k, v in res.stage_times.items()) + ")"
+    print(f"{name}: {res.num_frames} frames @ {res.fps:.1f} fps{stage}"
+          f"{note}")
+    gt_path = os.path.join(seq_dir, "gt", "gt.txt")
+    if os.path.exists(gt_path):
+        gt = mot.read_gt(gt_path)
+        pred = results_to_pred(res)
+        eval_inputs[name] = (gt, pred)
+        if args.hota:
+            h = evaluate_hota(gt, pred)
+            print("  " + "  ".join(
+                f"{label} {h[label.lower()] * 100:.3f}"
+                for label in ("HOTA", "DetA", "AssA", "DetRe", "DetPr",
+                              "AssRe", "AssPr", "LocA")))
+
+
+def evaluate_all(args, eval_inputs) -> dict:
+    """Per-sequence CLEAR over a process pool with ``--eval-workers`` > 1
+    (the TrackEval USE_PARALLEL role), the accumulated CLEAR printed as
+    JSON.  Returns ``{name: MotMetrics}``."""
+    from busca_tpu_torch.eval.runner import (
+        evaluate_sequences_parallel,
+        global_metrics,
+    )
+
     per_seq = {}
     if eval_inputs:
-        # per-sequence CLEAR over a process pool with --eval-workers > 1
-        # (the TrackEval USE_PARALLEL role), then the tally sum
         per_seq = evaluate_sequences_parallel(
             eval_inputs, num_workers=args.eval_workers)
         print(json.dumps(global_metrics(per_seq).as_dict(), indent=2))
     return per_seq
+
+
+def run_lockstep(args, detector, engine, tracker_kwargs,
+                 feature_extractor=None, link_model=None) -> dict:
+    """``--lockstep``: the ``--mot-dir`` sequences frame by frame in step,
+    every frame's BUSCA third rounds served by one grouped association.
+    Three ways, as busca_tpu's CLI: StrongSORT's ``--npy-det`` artifacts
+    (``run_cached_sequences_lockstep``), the sequences' ``det/det.txt``
+    (``run_mot_sequences_lockstep``), or a live YOLOX detector over each
+    group of same-resolution sequences, one batch step per lockstep frame
+    (``track_sequences_lockstep``).  Results, metrics and the printout as
+    :func:`run_mot`."""
+    import collections
+
+    from busca_tpu_torch.eval import mot
+
+    dirs = list(args.mot_dir)
+    names = [os.path.basename(d.rstrip("/")) for d in dirs]
+    notes = {d: "" for d in dirs}
+    if args.tracker == "strongsort" and args.npy_det:
+        from busca_tpu_torch.eval.strongsort_io import (
+            load_ecc_warps,
+            run_cached_sequences_lockstep,
+        )
+
+        ecc_all = load_ecc_warps(args.ecc_json) if args.ecc_json else None
+        specs = []
+        for d, name in zip(dirs, names):
+            det_file = args.npy_det
+            if os.path.isdir(det_file):
+                det_file = os.path.join(det_file, f"{name}.npy")
+            specs.append((d, det_file,
+                          ecc_all.get(name) if ecc_all else None))
+        trackers = [make_tracker("strongsort", tracker_kwargs, engine,
+                                 args.crop_hw) for _ in specs]
+        results = run_cached_sequences_lockstep(
+            specs, trackers, min_confidence=args.min_confidence,
+            max_frames=args.max_frames)
+    elif detector is None:
+        from busca_tpu_torch.eval.runner import run_mot_sequences_lockstep
+
+        trackers = [shim_for_runner(
+            args.tracker,
+            make_tracker(args.tracker,
+                         seq_tracker_kwargs(args, tracker_kwargs, name),
+                         engine, args.crop_hw, feature_extractor),
+            feature_extractor, args.crop_hw) for name in names]
+        results = run_mot_sequences_lockstep(dirs, trackers,
+                                             max_frames=args.max_frames)
+    else:
+        import itertools
+
+        from busca_tpu_torch.eval.detector import track_sequences_lockstep
+        from busca_tpu_torch.eval.loader import sequence_frames
+
+        infos = {d: mot.load_seqinfo(d) for d in dirs}
+        groups = collections.defaultdict(list)
+        for d in dirs:
+            groups[(infos[d].im_height, infos[d].im_width)].append(d)
+        by_dir = {}
+        for (h, w), group in groups.items():
+            trackers, frame_iters = [], []
+            for d in group:
+                info = infos[d]
+                trackers.append(shim_for_runner(
+                    args.tracker,
+                    make_tracker(args.tracker,
+                                 seq_tracker_kwargs(args, tracker_kwargs,
+                                                    info.name),
+                                 engine, args.crop_hw, feature_extractor),
+                    feature_extractor, args.crop_hw))
+                frames = iter(sequence_frames(info))
+                if args.max_frames:
+                    frames = itertools.islice(frames, args.max_frames)
+                frame_iters.append(frames)
+            outs = track_sequences_lockstep(
+                detector, trackers, frame_iters,
+                names=[infos[d].name for d in group])
+            for d, res in zip(group, outs):
+                by_dir[d] = res
+                notes[d] = f" (lockstep group of {len(group)} at {h}x{w})"
+        results = [by_dir[d] for d in dirs]
+    eval_inputs = {}
+    for d, name, res in zip(dirs, names, results):
+        out_path = os.path.join(args.output_dir, f"{name}.txt")
+        mot.write_results(out_path, res.results)
+        report_sequence(args, d, res, out_path, link_model, eval_inputs,
+                        notes[d])
+    return evaluate_all(args, eval_inputs)
 
 
 def main(argv=None):
@@ -562,6 +704,27 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--crop-bank-slots", type=int, default=None)
+    parser.add_argument("--reid-stats", choices=("batch", "frozen", "auto"),
+                        default="batch",
+                        help="BUSCA's ReID BN mode: batch (the reference's "
+                             "batch statistics, the default and the one "
+                             "mode ported); frozen and auto are refused")
+    parser.add_argument("--mem-cap", type=int, default=None,
+                        help="bound each track's appearance memory to this "
+                             "many entries (a dense recent tail and an "
+                             "even-stride archive; default: unbounded, the "
+                             "reference's semantics); byte-family, "
+                             "strongsort, deepsort and ghost trackers")
+    parser.add_argument("--lockstep", action="store_true",
+                        help="run the --mot-dir sequences frame by frame in "
+                             "step: one batch step of a yolox --detector "
+                             "per frame of each same-resolution group, and "
+                             "one grouped association for every sequence's "
+                             "BUSCA third round (also over det.txt and "
+                             "--npy-det)")
+    parser.add_argument("--lockstep-dp", type=int, default=0,
+                        help="shard the lockstep batch over this many "
+                             "devices; refused when non-zero")
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--num-frames", type=int, default=40)
     parser.add_argument("--crop-h", type=int, default=384)
@@ -652,6 +815,28 @@ def main(argv=None):
     if args.detector == "centertrack" and args.tracker != "centertrack":
         parser.error("--detector centertrack needs --tracker centertrack "
                      "(dict IO)")
+    if args.reid_stats != "batch":
+        parser.error(f"--reid-stats {args.reid_stats} (frozen BN statistics "
+                     "and the feature bank) is not ported yet (ROADMAP.md "
+                     "Queue 1 items 7 and 24)")
+    if args.lockstep_dp:
+        parser.error("--lockstep-dp (the lockstep batch sharded over "
+                     "devices) is not ported yet (ROADMAP.md Queue 1 item "
+                     "23)")
+    if args.mem_cap is not None:
+        if args.tracker not in MEM_CAP_TRACKERS:
+            parser.error(f"--mem-cap only applies to trackers that store "
+                         f"appearance memory {MEM_CAP_TRACKERS}; --tracker "
+                         f"{args.tracker} keeps no crop memory")
+    if args.lockstep:
+        npy = args.tracker == "strongsort" and args.npy_det
+        cached = args.detector is None and args.tracker in (
+            "byte", "sort", "ghost", "strongsort", "deepsort", "motdt")
+        if not (npy or cached) and args.detector in (None, "transcenter",
+                                                     "centertrack"):
+            parser.error("--lockstep needs a yolox --detector, --tracker "
+                         "strongsort --npy-det, or a cached-detection "
+                         "byte/sort/ghost/strongsort/deepsort/motdt run")
 
     from busca_tpu_torch.utils.device import set_card_precision
 
@@ -668,6 +853,8 @@ def main(argv=None):
         tracker_kwargs["cmc_scale"] = args.cmc_scale
     if args.ghost_motion_compensation:
         tracker_kwargs["motion_compensation"] = True
+    if args.mem_cap is not None:
+        tracker_kwargs["mem_cap"] = args.mem_cap
     if args.synthetic:
         out = run_synthetic(args, engine, tracker_kwargs)
         print(json.dumps(out, indent=2))
@@ -687,8 +874,9 @@ def main(argv=None):
                 args.reid_ckpt, crop_hw=args.crop_hw, device=args.device)
         if args.aflink:
             link_model = load_aflink(args.aflink, args.device)
-        return run_mot(args, detector, engine, tracker_kwargs,
-                       feature_extractor, link_model)
+        run = run_lockstep if args.lockstep else run_mot
+        return run(args, detector, engine, tracker_kwargs,
+                   feature_extractor, link_model)
     parser.error("pick a mode: --synthetic or --mot-dir")
 
 

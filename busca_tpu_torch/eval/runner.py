@@ -1,11 +1,11 @@
 """Sequence runner and evaluation harness (port of ``busca_tpu.eval.runner``
 in one process): drive one tracker over a sequence, filter its output like
 the reference MOT evaluator, evaluate it, the cached-detection MOTChallenge
-mode (``det/det.txt``), the base-vs-BUSCA A/B, and metric aggregation over
-sequences.
+mode (``det/det.txt``) alone or over several sequences in lockstep, the
+base-vs-BUSCA A/B, and metric aggregation over sequences.
 
-Not here: the frame-synchronized multi-sequence runners (ROADMAP.md item
-21) and the multi-process sharding and tally allgather (item 23).
+Not here: the multi-process sharding and tally allgather (ROADMAP.md item
+23) and the visualization (item 25).
 """
 
 from __future__ import annotations
@@ -81,6 +81,81 @@ def run_sequence(
         results.append((idx + 1, tlwhs, ids, confs))
     dt = time.perf_counter() - t0
     return SequenceResult(name, len(results), results, dt)
+
+
+def run_mot_sequences_lockstep(
+    seq_dirs,
+    trackers,
+    det_paths=None,
+    min_box_area: float = 100.0,
+    vertical_thresh: Optional[float] = 1.6,
+    max_frames: Optional[int] = None,
+) -> List[SequenceResult]:
+    """Several cached-detection MOTChallenge sequences frame by frame in
+    step, every sequence's BUSCA third round served by one grouped
+    association per frame (trackers with ``update_deferred``; per-request BN
+    groups keep each sequence's numbers equal to its own run).  The
+    cached-detection path is busca_tpu's canonical slice (BASELINE.json
+    config 1); this is its multi-sequence throughput mode.  Frames are
+    decoded with cv2, and only for the trackers that read pixels."""
+    import cv2
+
+    from busca_tpu_torch.trackers.base import service_deferred_updates
+
+    infos = [mot.load_seqinfo(d) for d in seq_dirs]
+    det_paths = det_paths or [None] * len(seq_dirs)
+    dets_all = [mot.read_detections(p or os.path.join(d, "det", "det.txt"))
+                for d, p in zip(seq_dirs, det_paths)]
+    lengths = [min(i.seq_length, max_frames) if max_frames else i.seq_length
+               for i in infos]
+    results = [[] for _ in seq_dirs]
+    # pixels feed only BUSCA crops and features: a pixel-free tracker's
+    # sequence skips the decode
+    needs_pixels = [
+        getattr(t, "use_busca", False)
+        or getattr(getattr(t, "trk", None), "use_busca", False)
+        or getattr(t, "feat_fn", None) is not None
+        for t in trackers
+    ]
+    t0 = time.perf_counter()
+    step = 0
+    while True:
+        live = [i for i in range(len(seq_dirs)) if step < lengths[i]]
+        if not live:
+            break
+        frame_id = step + 1
+        frames_now = {i: cv2.imread(infos[i].frame_path(frame_id))
+                      if needs_pixels[i] else None for i in live}
+        # every ECC solve starts on the CMC pool before any update runs,
+        # each with its tracker's own recipe
+        for i in live:
+            if hasattr(trackers[i], "cmc_prefetch"):
+                trackers[i].cmc_prefetch(frames_now[i])
+        onlines, pending = {}, []
+        for i in live:
+            boxes, scores = dets_all[i].get(
+                frame_id, (np.zeros((0, 4)), np.zeros(0)))
+            trk = trackers[i]
+            if hasattr(trk, "update_deferred"):
+                gen = trk.update_deferred(boxes, scores, 1.0, frames_now[i])
+                try:
+                    pending.append((i, gen, next(gen)))
+                except StopIteration as e:
+                    onlines[i] = e.value
+            else:
+                onlines[i] = trk.update(boxes, scores, 1.0, frames_now[i])
+        if pending:
+            onlines.update(service_deferred_updates(pending))
+        for i in live:
+            tlwhs, ids, confs = filter_output_tracks(
+                onlines[i], min_box_area, vertical_thresh)
+            results[i].append((frame_id, tlwhs, ids, confs))
+        step += 1
+    dt = time.perf_counter() - t0
+    total = max(sum(len(r) for r in results), 1)
+    return [SequenceResult(infos[i].name, len(results[i]), results[i],
+                           dt * len(results[i]) / total)
+            for i in range(len(seq_dirs))]
 
 
 def results_to_pred(

@@ -14,8 +14,9 @@ detector (adapters/StrongSORT/deep_sort_app.py):
   ``tracker.update(...)`` (deep_sort_app.py:170-206), frames loaded only for
   BUSCA crops.
 
-Frames are decoded with cv2, imported where a frame is read.  The
-multi-sequence lockstep runner is ROADMAP.md item 21.
+Frames are decoded with cv2, imported where a frame is read.
+:func:`run_cached_sequences_lockstep` runs several sequences frame by frame
+in step, their BUSCA third rounds served by one grouped association.
 """
 
 from __future__ import annotations
@@ -221,3 +222,73 @@ def _frame_inputs(
     tlbr = tlwh.copy()
     tlbr[:, 2:] += tlbr[:, :2]
     return tlbr, conf, feats, frame
+
+
+def run_cached_sequences_lockstep(
+    specs,
+    trackers,
+    min_confidence: float = 0.6,
+    nms_max_overlap: float = 1.0,
+    min_detection_height: float = 0,
+    load_images: bool = True,
+    max_frames: Optional[int] = None,
+):
+    """Several cached-artifact sequences frame by frame in step, every
+    sequence's BUSCA third round served by one grouped association per frame
+    (per-request BN groups keep each sequence's numbers equal to its own
+    :func:`run_cached_sequence`).
+
+    Args:
+      specs: ``(sequence_dir, detection_file, ecc_warps_or_None)`` each.
+      trackers: one StrongSortTracker per spec.
+    Returns one SequenceResult per spec, each with its share of the wall
+    time.
+    """
+    import time
+
+    from busca_tpu_torch.eval.runner import SequenceResult
+    from busca_tpu_torch.trackers.base import service_deferred_updates
+
+    infos = [gather_sequence_info(d, f) for d, f, _ in specs]
+    ranges = [(s["min_frame_idx"],
+               min(s["max_frame_idx"], s["min_frame_idx"] + max_frames - 1)
+               if max_frames else s["max_frame_idx"]) for s in infos]
+    results = [[] for _ in specs]
+    t0 = time.perf_counter()
+    step = 0
+    while True:
+        frame_idxs = [lo + step for lo, _ in ranges]
+        live = [i for i, (fi, (_, hi)) in enumerate(zip(frame_idxs, ranges))
+                if fi <= hi]
+        if not live:
+            break
+        onlines, pending = {}, []
+        for i in live:
+            tlbr, conf, feats, frame = _frame_inputs(
+                infos[i], frame_idxs[i], min_confidence, nms_max_overlap,
+                min_detection_height, load_images,
+            )
+            warps = specs[i][2]
+            if warps is not None:
+                m = ecc_matrix_for_frame(warps, frame_idxs[i])
+                if m is not None:
+                    trackers[i].camera_update(m)
+            trackers[i].predict()
+            gen = trackers[i].update_deferred(tlbr, conf, feats, frame)
+            try:
+                pending.append((i, gen, next(gen)))
+            except StopIteration as e:
+                onlines[i] = e.value
+        if pending:
+            onlines.update(service_deferred_updates(pending))
+        for i in live:
+            online = onlines[i]
+            results[i].append((frame_idxs[i], [t.tlwh for t in online],
+                               [t.track_id for t in online],
+                               [t.score for t in online]))
+        step += 1
+    dt = time.perf_counter() - t0
+    total = max(sum(len(r) for r in results), 1)
+    return [SequenceResult(os.path.basename(d.rstrip("/")), len(results[i]),
+                           results[i], dt * len(results[i]) / total)
+            for i, (d, _, _) in enumerate(specs)]

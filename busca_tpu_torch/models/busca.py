@@ -176,6 +176,9 @@ class BuscaModel(nn.Module):
         return_att: bool = False,
         can_weights: Optional[torch.Tensor] = None,
         can_gather: Optional[torch.Tensor] = None,
+        mem_group: Optional[torch.Tensor] = None,
+        can_group: Optional[torch.Tensor] = None,
+        num_groups: int = 1,
     ):
         """Score candidates for a batch of tracks.
 
@@ -191,6 +194,13 @@ class BuscaModel(nn.Module):
             crops' occurrence counts ``[U]`` (the BN weights, so statistics
             equal the duplicated batch's) and the per-slot index map
             ``[B, C]``.
+          mem_group / can_group / num_groups: several independent
+            association calls (one per lockstep sequence) in one forward:
+            ``mem_group [B]`` and ``can_group [U or B]`` give each track and
+            candidate crop its request r < ``num_groups``; BN statistics are
+            per (request, memory|candidate) group, so each request's numbers
+            equal its own call's.  ``can_group`` defaults to ``mem_group``
+            without a gather.
 
         Returns:
           logits ``[B, C + extras]`` (and the attention list).
@@ -201,9 +211,10 @@ class BuscaModel(nn.Module):
         d_model = cfg.trans_dim
         dev = mem_bboxes.device
 
-        # ONE ReID pass over memory + candidate crops; the [N, 2] group
-        # weights (group 0 = memory, group 1 = candidates, zero rows =
-        # padded lanes) keep the reference's per-group BN statistics
+        # ONE ReID pass over memory + candidate crops; the [N, 2 * groups]
+        # weights (column r = request r's memory, column groups + r its
+        # candidates, zero rows = padded lanes) keep the reference's
+        # per-group BN statistics (busca_tpu/models/busca.py:240-264)
         n_mem = b * l_mem
         if can_gather is not None:
             can_flat = can_crops
@@ -220,9 +231,24 @@ class BuscaModel(nn.Module):
             [mem_crops.reshape((n_mem,) + mem_crops.shape[2:]), can_flat],
             dim=0,
         )
-        group_mask = torch.zeros(flat.shape[0], 2, device=dev)
-        group_mask[:n_mem, 0] = w_mem
-        group_mask[n_mem:, 1] = w_can
+        r = int(num_groups)
+        mem_cols = (torch.zeros(n_mem, dtype=torch.long, device=dev)
+                    if mem_group is None
+                    else mem_group.long().repeat_interleave(l_mem))
+        if can_group is not None:
+            can_src = can_group.long()
+        elif mem_group is not None and can_gather is None:
+            can_src = mem_group.long()
+        else:
+            can_src = torch.zeros(can_flat.shape[0], dtype=torch.long,
+                                  device=dev)
+        can_cols = (can_src.repeat_interleave(c)
+                    if can_gather is None and can_src.shape[0] == b
+                    else can_src)
+        group_mask = torch.zeros(flat.shape[0], 2 * r, device=dev)
+        group_mask[torch.arange(n_mem, device=dev), mem_cols] = w_mem
+        group_mask[torch.arange(n_mem, flat.shape[0], device=dev),
+                   can_cols + r] = w_can
         _, feats = self.reid_encoder.model(flat, group_mask)
         mem_feats = feats[:n_mem].reshape(b, l_mem, -1)
         if can_gather is not None:

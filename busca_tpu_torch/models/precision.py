@@ -72,15 +72,21 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv(dtype=...)`` on float32 parameters (NCHW)."""
+    """``nn.Conv(dtype=...)`` on float32 parameters (NCHW).
+
+    With ``cudnn`` set False a float32 convolution on the card runs through
+    PyTorch's own path instead of cuDNN (:func:`gemm_conv2d`)."""
 
     def __init__(self, *args, dtype: torch.dtype = torch.float32, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = dtype
+        self.cudnn = True
 
     def forward(self, x):
         dt = self.compute_dtype
         if dt == torch.float32:
+            if not self.cudnn and x.is_cuda:
+                return gemm_conv2d(self, x.to(dt))
             return super().forward(x.to(dt))
         # flax promote_dtype: input, kernel, bias to bf16; y += bias in bf16
         y = product(lambda a, k: self._conv_forward(a, k, None), x.to(dt),
@@ -88,6 +94,21 @@ class Conv2d(nn.Conv2d):
         if self.bias is None:
             return y
         return y + self.bias.to(dt).reshape(1, -1, 1, 1)
+
+
+def gemm_conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` through PyTorch's own convolution (im2col and a cuBLAS
+    GEMM for each image of the batch), not cuDNN: ``torch._convolution``
+    with ``cudnn_enabled=False``, so no global flag changes and other
+    threads' convolutions keep cuDNN.  An image's output does not depend
+    on the batch it is in, which cuDNN's algorithm choice does not promise
+    (it picks by batch size)."""
+    if conv.padding_mode != "zeros" or isinstance(conv.padding, str):
+        raise ValueError("gemm_conv2d takes zero padding given as sizes")
+    return torch._convolution(
+        x, conv.weight, conv.bias, conv.stride, conv.padding, conv.dilation,
+        False, (0, 0), conv.groups, False, False, False,
+        torch.backends.cudnn.allow_tf32)
 
 
 def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:

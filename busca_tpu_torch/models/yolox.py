@@ -24,6 +24,14 @@ compute dtype, with flax's ``nn.Conv(dtype=...)`` rule on float32 parameters
 (``models/precision.py``); BatchNorm keeps its float32 statistics and
 affine and returns the input's dtype (busca_tpu's ``BatchNorm``), and the
 decode runs in the head's dtype, as busca_tpu's does.
+
+On the card a float32 YOLOX convolves through PyTorch's own im2col + cuBLAS
+path, not cuDNN (``precision.gemm_conv2d``): with TF32 off, cuDNN's choice
+for a batch of four 800x1440 frames took about 2.5x four single frames'
+time, and it picks its algorithm by batch size, so a lockstep batch's rows
+would drift from the single-frame step's; the GEMM path is faster at both
+sizes and gives each frame the same rows in any batch (PERF.md, PR 11).
+bf16 convolutions keep cuDNN.
 """
 
 from __future__ import annotations
@@ -267,6 +275,9 @@ class YOLOX(nn.Module):
         self.backbone = PAFPN(config.depth, config.width, dtype)
         self.head = YOLOXHead(config.num_classes, config.width, dtype=dtype)
         self._grids = {}
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                m.cudnn = dtype != torch.float32
 
     def init_weights(self, generator: torch.Generator) -> "YOLOX":
         """Seeded random weights: lecun-normal (truncated at 2 sigma)

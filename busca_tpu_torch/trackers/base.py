@@ -541,8 +541,9 @@ class ThirdRoundRequest:
     """A suspended third-round association (deferred mode).
 
     A tracker's ``update_deferred`` generator yields one of these at its
-    Step-3b point; the caller services it (``run_third_round``) and sends
-    ``(matches, u_track)`` back into the generator.
+    Step-3b point; the lockstep drivers batch every sequence's request into
+    one model call (:func:`service_deferred_updates`, per-request BN groups)
+    and send ``(matches, u_track)`` back into the generator.
     """
 
     pool: list
@@ -551,3 +552,72 @@ class ThirdRoundRequest:
     thresh: float
     engine_kwargs: dict
     engine: object = None  # the yielding tracker's association engine
+
+
+def service_deferred_updates(pending):
+    """Finish a batch of suspended tracker updates.
+
+    ``pending``: ``(key, generator, ThirdRoundRequest)`` each.  The requests
+    are grouped by engine, each group is served by one batched association
+    (:func:`run_third_round_many`), and each result is sent back into its
+    generator, which is driven to its end.  Returns ``{key: output}``.
+    """
+    outputs = {}
+    by_engine = {}
+    for p in pending:
+        by_engine.setdefault(id(p[2].engine), []).append(p)
+    for group in by_engine.values():
+        outs = run_third_round_many(group[0][2].engine,
+                                    [p[2] for p in group])
+        for (key, gen, _), res in zip(group, outs):
+            # a follow-up yield is served on its own, as update() would
+            while True:
+                try:
+                    req = gen.send(res)
+                except StopIteration as e:
+                    outputs[key] = e.value
+                    break
+                res = run_third_round(req.engine, req.pool, req.considered,
+                                      req.kalman_cands, req.thresh,
+                                      **req.engine_kwargs)
+    return outputs
+
+
+def run_third_round_many(engine, requests):
+    """Serve a batch of :class:`ThirdRoundRequest`\\ s with one batched
+    association (``engine.associate_many``).  The requests must share their
+    ``engine_kwargs`` (lockstep sequences share one tracker config); those
+    with a disabled threshold or an empty pool never reach the device, as in
+    :func:`run_third_round`.  Returns ``(matches, u_track)`` per request."""
+    if not requests:
+        return []
+    if not hasattr(engine, "associate_many"):
+        # stub engines: one request at a time
+        return [run_third_round(engine, r.pool, r.considered,
+                                r.kalman_cands, r.thresh, **r.engine_kwargs)
+                for r in requests]
+    kw = requests[0].engine_kwargs
+    if any(r.engine_kwargs != kw for r in requests[1:]):
+        raise ValueError("batched third round needs uniform engine kwargs")
+    active = [r for r in requests if r.thresh > 0.0 and r.pool]
+    dist_fn = getattr(engine, "center_distances", None) or getattr(
+        engine, "_center_distances", None)
+    assoc_reqs = [
+        (r.pool, r.considered,
+         dist_fn(r.pool, r.considered)
+         if (r.considered or r.kalman_cands) else None,
+         r.kalman_cands)
+        for r in active
+    ]
+    outs = engine.associate_many(assoc_reqs, **kw) if assoc_reqs else []
+    by_active = {id(r): out for r, out in zip(active, outs)}
+    results = []
+    for r in requests:
+        out = by_active.get(id(r))
+        if out is None:
+            results.append(([], list(range(len(r.pool)))))
+        else:
+            probs, reliable = out
+            results.append(select_third_round_matches(
+                probs, reliable, len(r.considered), len(r.pool), r.thresh))
+    return results

@@ -102,6 +102,9 @@ class ByteTracker:
         self.max_time_lost = self.buffer_size
         self.last_image: Optional[np.ndarray] = None
         self.use_busca = config.use_busca and assoc_engine is not None
+        # a prefetched ECC warp for the next update, consumed once (the
+        # lockstep drivers' cmc_prefetch; cmc.submit_warp)
+        self._warp_hint = None
 
     # ------------------------------------------------------------------ main --
     def update(
@@ -147,6 +150,29 @@ class ByteTracker:
         tracks via ``StopIteration.value``."""
         return self._update_gen(bboxes_tlbr, scores, scale, frame)
 
+    def set_warp_hint(self, warp_fn):
+        """A zero-argument callable giving ``(cc, warp_2x3)`` for the next
+        update's camera-motion compensation, solved on the frame pair that
+        update would align itself, so the result equals the inline path.
+        Consumed once; ignored when CMC is off or the third round does not
+        run."""
+        self._warp_hint = warp_fn
+
+    def cmc_prefetch(self, cur_frame):
+        """Schedule the ECC solve of the next ``update(..., frame=cur_frame)``
+        on the shared CMC pool (:func:`cmc.submit_warp`) with this tracker's
+        recipe, and hold it as the warp hint.  The lockstep drivers call
+        this for every sequence before any update runs.  Returns the future,
+        or None when the update would not align."""
+        cfg = self.cfg
+        if (not self.use_busca or not cfg.use_camera_motion_compensation
+                or cur_frame is None or self.last_image is None):
+            return None
+        fut = cmc.submit_warp(self.last_image, host_frame(cur_frame),
+                              scale=cfg.cmc_scale)
+        self.set_warp_hint(fut.result)
+        return fut
+
     def _engine_kwargs(self) -> dict:
         """The engine kwargs _third_round passes (for batched servicing)."""
         return dict(
@@ -166,6 +192,7 @@ class ByteTracker:
     ):
         self.frame_id += 1
         cfg = self.cfg
+        warp_hint, self._warp_hint = self._warp_hint, None
         activated, refind, lost, removed = [], [], [], []
 
         bboxes_tlbr = np.asarray(bboxes_tlbr, dtype=np.float64).reshape(-1, 4)
@@ -285,10 +312,14 @@ class ByteTracker:
             else:
                 third_pool = unassigned
                 if cfg.use_camera_motion_compensation and self.frame_id > 1:
-                    cmc.compensate_tracks(
-                        third_pool, self.last_image, host_frame(frame),
-                        scale=cfg.cmc_scale,
-                    )
+                    if warp_hint is not None:
+                        _cc, warp = warp_hint()
+                        cmc.apply_warp(third_pool, warp)
+                    else:
+                        cmc.compensate_tracks(
+                            third_pool, self.last_image, host_frame(frame),
+                            scale=cfg.cmc_scale,
+                        )
                 kalman_cands = self._kalman_candidates(third_pool, frame_t)
                 third_matches, u_track = yield ThirdRoundRequest(
                     third_pool, considered_dets, kalman_cands,

@@ -60,9 +60,9 @@ class CenterTrackAdapter:
         self.tracks = []
 
     def cmc_prefetch(self, cur_frame):
-        raise NotImplementedError(
-            "CenterTrackAdapter.cmc_prefetch serves the lockstep runners, "
-            "not ported yet (ROADMAP.md Queue 1 item 21)")
+        """Forward the lockstep drivers' ECC prefetch to the inner
+        ByteTracker, which owns the recipe and the warp hint."""
+        return self.tracker.cmc_prefetch(cur_frame)
 
     def step(
         self,

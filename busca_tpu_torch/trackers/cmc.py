@@ -6,6 +6,8 @@ The reference aligns consecutive grayscale frames with OpenCV's
 byte_tracker.py:626-650) and warps every unmatched track's position by the
 recovered 2x3 matrix.  cv2 is optional and imported where it is used:
 without it, and when ECC does not converge, the warp is the identity.
+:func:`submit_warp` runs a solve on a shared thread pool, so the lockstep
+drivers overlap the sequences' solves with each other and with the device.
 """
 
 from __future__ import annotations
@@ -97,6 +99,29 @@ def apply_warp(tracks: Sequence, warp: np.ndarray):
     """Warp every track's position by a precomputed 2x3 matrix."""
     for t in tracks:
         t.apply_camera_motion(warp)
+
+
+_EXECUTOR = None
+
+
+def submit_warp(prev_frame, cur_frame, scale: float = 1.0, **ecc_kwargs):
+    """Schedule ``ecc_align(prev_frame, cur_frame, scale=scale,
+    **ecc_kwargs)`` on the shared CMC thread pool (at most 8 workers, named
+    ``cmc-ecc``) and return its ``concurrent.futures.Future`` of ``(cc,
+    warp)``.  cv2 releases the GIL in its solve, so the lockstep drivers'
+    ``cmc_prefetch`` calls, each with its tracker's own recipe, run the
+    sequences' solves side by side while the device works."""
+    global _EXECUTOR
+    if _EXECUTOR is None:
+        import concurrent.futures
+        import os
+
+        _EXECUTOR = concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="cmc-ecc",
+        )
+    return _EXECUTOR.submit(ecc_align, prev_frame, cur_frame, scale=scale,
+                            **ecc_kwargs)
 
 
 def compensate_tracks(

@@ -38,8 +38,8 @@ Behavioral rebuild of the reference adapter (adapters/GHOST/src/
 The frame goes to the engine's device once per update; the detection crops
 and the Kalman-candidate crops are cut from it there (kernel K1 on the
 card), and the candidates' crops go into the feature extractor on the
-device.  ECC runs on the host with cv2.  The lockstep runners' ECC prefetch
-(``set_warp_hint``, ``cmc_prefetch``) is ROADMAP.md item 21.
+device.  ECC runs on the host with cv2; the lockstep drivers prefetch it on
+the shared CMC pool (``cmc_prefetch``, ``set_warp_hint``).
 """
 
 from __future__ import annotations
@@ -275,6 +275,8 @@ class GhostTracker:
         self.act_thresh = config.act_reid_thresh
         self.inact_thresh = config.inact_reid_thresh
         self._last_mc_frame: Optional[np.ndarray] = None
+        # a prefetched ECC warp for the next update, consumed once
+        self._warp_hint = None
         self.conf_threshold = (
             config.det_conf + config.minimum_conf_modifier
             if self.use_busca and config.transformer_update_mems_only_first_round
@@ -312,14 +314,31 @@ class GhostTracker:
         return self._update_gen(boxes_tlbr, scores, features, frame)
 
     def set_warp_hint(self, warp_fn):
-        raise NotImplementedError(
-            "GhostTracker.set_warp_hint serves the lockstep runners' ECC "
-            "prefetch, not ported yet (ROADMAP.md Queue 1 item 21)")
+        """A zero-argument callable giving ``(cc, warp_2x3)`` for the next
+        update's ego-motion compensation, solved on the frame pair and with
+        the recipe that update would use inline.  Consumed once."""
+        self._warp_hint = warp_fn
 
     def cmc_prefetch(self, cur_frame):
-        raise NotImplementedError(
-            "GhostTracker.cmc_prefetch serves the lockstep runners, not "
-            "ported yet (ROADMAP.md Queue 1 item 21)")
+        """Schedule the next update's ECC solve on the shared CMC pool
+        (:func:`cmc.submit_warp`) with GHOST's recipe (template = the
+        current frame, gauss_filt_size 15, base_tracker.py:607-620) and
+        hold it as the warp hint.  Returns the future, or None when the
+        update would not align."""
+        cfg = self.cfg
+        if (not cfg.motion_compensation or cur_frame is None
+                or self._last_mc_frame is None or not cfg.is_moving
+                or not (self.tracks or self.inactive_tracks)):
+            return None
+        from busca_tpu_torch.trackers import cmc
+
+        fut = cmc.submit_warp(
+            host_frame(cur_frame), self._last_mc_frame, scale=cfg.cmc_scale,
+            number_of_iterations=cfg.mc_num_iter,
+            termination_eps=cfg.mc_termination_eps, gauss_filt_size=15,
+        )
+        self.set_warp_hint(fut.result)
+        return fut
 
     def _engine_kwargs(self) -> dict:
         cfg = self.cfg
@@ -354,6 +373,7 @@ class GhostTracker:
         # before association; warps the position HISTORY of every active and
         # inactive track when the camera moves.  Solve skipped when it would
         # not be applied (the reference runs it anyway for a debug norm).
+        warp_hint, self._warp_hint = self._warp_hint, None
         if cfg.motion_compensation and frame is not None:
             host = host_frame(frame)
             if (
@@ -366,14 +386,17 @@ class GhostTracker:
                 # template = CURRENT frame ("changed this from tracktor",
                 # base_tracker.py:607-611): the warp maps last-frame coords
                 # into current-frame coords for the stored positions
-                _cc, warp = cmc.ecc_align(
-                    host,
-                    self._last_mc_frame,
-                    number_of_iterations=cfg.mc_num_iter,
-                    termination_eps=cfg.mc_termination_eps,
-                    scale=cfg.cmc_scale,
-                    gauss_filt_size=15,
-                )
+                if warp_hint is not None:
+                    _cc, warp = warp_hint()
+                else:
+                    _cc, warp = cmc.ecc_align(
+                        host,
+                        self._last_mc_frame,
+                        number_of_iterations=cfg.mc_num_iter,
+                        termination_eps=cfg.mc_termination_eps,
+                        scale=cfg.cmc_scale,
+                        gauss_filt_size=15,
+                    )
                 for group in (self.tracks, self.inactive_tracks):
                     for t in group.values():
                         t.warp_position_history(warp)

@@ -11,7 +11,8 @@ Phases (each failure exits non-zero before the result line):
    1080x1920 frame, 64 boxes (inside, partly outside, wholly outside,
    degenerate), every flag combination of the crop op; the detectors'
    letterbox shapes (one full-frame box, 1080x1920 -> 612x1088 for
-   TransCenter, -> 800x1422 for YOLOX); and the pad
+   TransCenter, -> 800x1422 for YOLOX), BUSCA's crops of CenterTrack's
+   544x960 and YOLOX's 800x1440 canvases; and the pad
    path at 2160x3840 (values 200-255, boxes across each edge, one covering
    the frame, whose region total passes 2**32); max |diff|, exact share,
    times of the op, the kernel alone and the plain version, and the bound;
@@ -101,7 +102,24 @@ Phases (each failure exits non-zero before the result line):
    and bf16 (time, peak memory, device time by kind and MSDA's share, the
    bf16 maps against float32), and 6 frames of the TransCenter loop with
    BUSCA (K1 counted; K2 must not run);
-12. the ``kernels`` JSON line, then the result line
+12. lockstep evaluation across sequences: four dropout sequences at
+   1080x1920 (seeds 0, 3, 5, 7; one of 7 frames, three of 10) through
+   phase 7's YOLOX-X, one batch step per lockstep frame
+   (``detect_batch_async``: one upload, K1 letterboxes each frame into its
+   slice of one canvas batch), ByteTracker + BUSCA in bf16, every frame's
+   third rounds served by one ``associate_many``
+   (``track_sequences_lockstep``).  The batch step enqueues without a host
+   sync; its canvases equal the single-frame ones bit for bit, its rows,
+   boxes and detections the single-frame step's; every K1 launch is at a
+   shape phases 2 and 7 held; ``associate_many`` over the sequences' live
+   third-round requests against per-request ``associate`` in float32 and
+   bf16; each sequence's output against its own pipelined loop (ids
+   relabelled); ms
+   per sequence-frame against the sequential loop, the device's idle
+   share over the lockstep frames, and the batch step at B=1 and B=4 in
+   float32 and bf16, and in float32 through cuDNN (which the float32 YOLOX
+   does not use on the card: ``precision.gemm_conv2d``);
+13. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -233,6 +251,19 @@ MSDA_POINTS, MSDA_OFFSET_PX, MSDA_TOL = 9, 3.0, 1e-5
 TC_DEFORM_MAP_TOL = 1e-4
 TC_DEFORM_OFFSET_GAIN, TC_DEFORM_WEIGHT_GAIN = 2.0, 1.0
 TC_DEFORM_FRAMES = 6
+# Phase 12: lockstep evaluation across sequences.  LS_SEEDS' dropout
+# sequences at 1080x1920, LS_LENGTHS frames each from frame LS_START on (the
+# dropout of the first object starts at 18; one sequence ends early, which
+# drives the padding), through phase 7's calibrated float32 YOLOX-X in one
+# batch step per lockstep frame and BUSCA in bf16.  The batch step's rows
+# against the single-frame step's within LS_ROW_TOL of the rows' scale,
+# detections' boxes within LS_BOX_PX frame pixels; associate_many against
+# per-request associate within rtol/atol LS_PROB_RTOL/LS_PROB_ATOL in
+# float32 (tests/test_engine.py's bound) and LS_BF16_PROB_BAR in bf16 (the
+# third-round bar, tests/test_pipeline_fuzz.py:138) with equal decisions.
+LS_SEEDS, LS_LENGTHS, LS_START = (0, 3, 5, 7), (10, 10, 7, 10), 10
+LS_ROW_TOL, LS_BOX_PX = 1e-4, 0.1
+LS_PROB_RTOL, LS_PROB_ATOL, LS_BF16_PROB_BAR = 2e-4, 2e-6, 0.0242
 # a stream hold lasts three times the host time it covers, and at least
 # this long: a busy host's enqueue must not outrun it
 HOLD_MIN_S = 0.25
@@ -554,16 +585,17 @@ def canvas_crop_boxes(rng, h, w):
     return (np.asarray(smoke_boxes(rng, N_BOXES, *FRAME_HW)) * r).tolist()
 
 
-def phase_k1_canvas_crops(device):
-    """K1 at CenterTrack's BUSCA crops: N_BOXES boxes -> CROP_HW from the
-    uint8 544x960 canvas, exact against the plain version."""
+def phase_k1_canvas_crops(device, canvas_hw=CT_TEST_SIZE,
+                          label="CenterTrack"):
+    """K1 at a detector's BUSCA crops: N_BOXES boxes -> CROP_HW from its
+    uint8 letterbox canvas (CenterTrack's 544x960, YOLOX's 800x1440), exact
+    against the plain version."""
     frame, boxes_np, boxes, scratch, out = k1_case(
-        device, 5, canvas_crop_boxes, CROP_HW, frame_hw=CT_TEST_SIZE)
-    result = hold_k1(f"K1 CenterTrack crops {CT_TEST_SIZE} -> {CROP_HW}, "
+        device, 5, canvas_crop_boxes, CROP_HW, frame_hw=canvas_hw)
+    result = hold_k1(f"K1 {label} crops {canvas_hw} -> {CROP_HW}, "
                      f"{len(boxes_np)} boxes", frame, boxes, scratch, out,
                      K1_MAIN_KW, timed=True)
-    report_k1("CenterTrack canvas crops", result, CT_TEST_SIZE, boxes_np,
-              out)
+    report_k1(f"{label} canvas crops", result, canvas_hw, boxes_np, out)
     return result
 
 
@@ -951,7 +983,9 @@ KERNEL_KINDS = (  # (kind, substrings of a kernel's name), first match wins
     ("K2 local_tap_sum", ("local_tap_sum",)),
     ("K1 crop_resize", ("crop_resize",)),
     # before matmul: cuDNN's implicit-GEMM convolutions carry "gemm"/"xmma"
-    ("convolution", ("conv", "cudnn", "implicit", "winograd", "fprop")),
+    # (PyTorch's own convolution path is im2col, then a GEMM under matmul)
+    ("convolution", ("conv", "cudnn", "implicit", "winograd", "fprop",
+                     "im2col")),
     ("matmul", ("gemm", "xmma", "cutlass", "cublas", "splitk")),
     ("max pool", ("max_pool", "pool2d")),
     ("upsample", ("upsample",)),
@@ -2890,6 +2924,355 @@ def phase_deformable(device, engine):
     return k1
 
 
+def lockstep_sequences():
+    """Phase 12's sequences (see LS_SEEDS): lists of uint8 1080x1920
+    frames."""
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+
+    seqs = []
+    for seed, n in zip(LS_SEEDS, LS_LENGTHS):
+        base = default_dropout_sequence(40, seed=seed)
+        seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                                height=FRAME_HW[0], width=FRAME_HW[1],
+                                seed=seed)
+        seqs.append([seq.frame(t) for t in range(LS_START, LS_START + n)])
+    return seqs
+
+
+def lockstep_batch_vs_single(det, frames):
+    """The batch step on one frame of each sequence against the
+    single-frame step: no host sync in ``detect_batch_async``, one K1
+    launch per frame, canvases bit-equal, decoded rows within LS_ROW_TOL of
+    their scale, the candidates' boxes (rows scoring above the detector's
+    threshold) within LS_BOX_PX frame pixels, equal detection counts, and
+    every detection the NMS keeps within LS_BOX_PX of one the single-frame
+    step keeps (where two overlapping candidates nearly tie, noise in the
+    rows would decide which one it keeps)."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    first = np.stack(frames)
+    det.wait_batch(det.detect_batch_async(first))  # warm at this batch
+    torch.cuda.synchronize()
+    crop_resize_cuda.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = det.detect_batch_async(first)
+    except RuntimeError as e:
+        raise PhaseError(f"detect_batch_async synchronized: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = crop_resize_cuda.launches
+    outs = det.wait_batch(handle)
+    check(launches == len(frames),
+          f"the batch step launched K1 {launches} times for "
+          f"{len(frames)} frames")
+    row_err = box_err = score_err = 0.0
+    picks, moved = 0, 0
+    for i, frame in enumerate(frames):
+        single = det.detect(frame)
+        check(torch.equal(outs[i].image, single.image),
+              f"sequence {i}: the lockstep canvas differs from the "
+              "single-frame canvas")
+        with torch.no_grad():
+            want = det.forward(single.image)
+        got = handle.pred[i]
+        row_err = max(row_err, float((got - want).abs().max()
+                                     / want.abs().max()))
+        score = want[:, 4] * want[:, 5:].max(-1).values
+        cand = score >= det.conf_thresh
+        if bool(cand.any()):
+            box_err = max(box_err, float(
+                (got[cand, :4] - want[cand, :4]).abs().max()) / single.scale)
+            score_err = max(score_err, float(
+                (got[cand, 4:] - want[cand, 4:]).abs().max()))
+        check(len(outs[i].scores) == len(single.scores),
+              f"sequence {i}: {len(outs[i].scores)} detections in the "
+              f"batch, {len(single.scores)} alone")
+        picks += len(outs[i].scores)
+        if len(single.scores):
+            gap = np.abs(outs[i].boxes_tlbr[:, None]
+                         - single.boxes_tlbr[None]).max(-1) / single.scale
+            moved += int((gap.min(1) > LS_BOX_PX).sum())
+    print(f"lockstep batch step (B={len(frames)}) vs the single-frame step "
+          f"on the card: detect_batch_async under set_sync_debug_mode("
+          f"'error'): no host sync; K1 launches {launches} (one letterbox "
+          f"per frame); canvases bit-equal; decoded rows max |diff| "
+          f"{row_err:.3g} of their scale (tol {LS_ROW_TOL}); candidates' "
+          f"boxes max |diff| {box_err:.3g} frame px (tol {LS_BOX_PX}), obj "
+          f"and cls {score_err:.3g}; detections without a single-frame one "
+          f"within {LS_BOX_PX} px: {moved} of {picks}")
+    check(row_err <= LS_ROW_TOL, f"batch rows off by {row_err}")
+    check(box_err <= LS_BOX_PX, f"batch boxes off by {box_err} px")
+    check(moved == 0, f"{moved} batch detections without a single-frame "
+          f"one within {LS_BOX_PX} px")
+
+
+def lockstep_association_check(engine, engine16, live):
+    """``associate_many`` over ``live`` third-round requests against
+    per-request ``associate`` on the same card, ``reliable`` and the
+    third-round decisions equal: the float32 engine within LS_PROB_RTOL /
+    LS_PROB_ATOL, the bf16 one within LS_BF16_PROB_BAR, with each row's
+    argmax equal where the per-request row's margin is above BF16_MARGIN
+    (the random model's rows are nearly flat, phase 4)."""
+    import numpy as np
+
+    from busca_tpu_torch.trackers.base import select_third_round_matches
+    from busca_tpu_torch.utils.padding import next_pow2
+
+    requests = [(r.pool, r.considered, None, r.kalman_cands) for r in live]
+    for eng in (engine, engine16):
+        many = eng.associate_many(requests, select_highest_candidate=False)
+        worst = excess = 0.0
+        same_decisions = same_reliable = True
+        confident = same_argmax = 0
+        for r, (p_b, r_b) in zip(live, many):
+            p_s, r_s = eng.associate(r.pool, r.considered,
+                                     extra_kalman_candidates=r.kalman_cands,
+                                     select_highest_candidate=False)
+            check(p_b.shape == p_s.shape, "associate_many shape")
+            same_reliable &= bool(np.array_equal(r_b, r_s))
+            dp = np.abs(p_b - p_s)
+            worst = max(worst, float(dp.max()))
+            excess = max(excess, float((dp - LS_PROB_RTOL
+                                        * np.abs(p_s)).max()))
+            n_dets, n_pool = len(r.considered), len(r.pool)
+            decided = [select_third_round_matches(
+                p, rel, n_dets, n_pool, r.thresh)
+                for p, rel in ((p_b, r_b), (p_s, r_s))]
+            same_decisions &= ([m[0] for m in decided[0][0]]
+                               == [m[0] for m in decided[1][0]])
+            srt = np.sort(p_s, -1)
+            sure = srt[:, -1] - srt[:, -2] > BF16_MARGIN
+            confident += int(sure.sum())
+            same_argmax += int((p_b.argmax(-1) == p_s.argmax(-1))[sure].sum())
+        tracks = [len(r.pool) for r in live]
+        f32 = eng is engine
+        bound = (f"rtol {LS_PROB_RTOL}, atol {LS_PROB_ATOL}: worst excess "
+                 f"over rtol {excess:.3g}" if f32
+                 else f"bar {LS_BF16_PROB_BAR}")
+        print(f"associate_many ({eng.config.dtype}) over {len(live)} "
+              f"sequences' third-round requests (tracks {tracks}, "
+              f"{next_pow2(len(live))} BN groups per kind) vs per-request "
+              f"associate on the card: max |dp| {worst:.3g} ({bound}); "
+              f"reliable equal: {same_reliable}; third-round decisions "
+              f"equal: {same_decisions}; argmax equal on {same_argmax} of "
+              f"{confident} rows whose margin > {BF16_MARGIN}")
+        check(same_reliable, "associate_many changed reliable")
+        check(same_decisions,
+              f"{eng.config.dtype} associate_many changed a third-round "
+              "decision")
+        check(same_argmax == confident,
+              f"{eng.config.dtype} associate_many changed a confident "
+              "argmax")
+        if f32:
+            check(excess <= LS_PROB_ATOL,
+                  f"float32 associate_many off by {worst} (rtol "
+                  f"{LS_PROB_RTOL}, atol {LS_PROB_ATOL})")
+        else:
+            check(worst <= LS_BF16_PROB_BAR,
+                  f"bf16 associate_many off by {worst}")
+
+
+def lockstep_step_times(det, frames):
+    """The batch step's CUDA-event ms and device-busy ms at B=1 and B=4,
+    float32 (also with its convolutions through cuDNN) and bf16 (the
+    detector's config in bf16, the same weights), frame 0's rows at B=4
+    against B=1, and the bf16 B=4 step's profile (its idle share)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import YoloxDetector
+    from busca_tpu_torch.models.precision import Conv2d
+
+    x = torch.from_numpy(np.stack(frames)).to(det.device)
+    det16 = YoloxDetector(dataclasses.replace(det.config, dtype="bfloat16"),
+                          det.model.state_dict(), test_size=YX_TEST_SIZE,
+                          conf_thresh=YX_CONF, device=det.device)
+    convs = [m for m in det.model.modules() if isinstance(m, Conv2d)]
+    times = {}
+    for dtype, d, cudnn in (("float32", det, False),
+                            ("float32 through cuDNN", det, True),
+                            ("bfloat16", det16, True)):
+        for m in convs:
+            m.cudnn = cudnn
+        rows = []
+        for b in (1, len(frames)):
+            xb = x[:b]
+            ms = cuda_time_ms(lambda: d.batch_step(xb), reps=4, warmup=1)
+            busy = device_busy_ms(lambda: d.batch_step(xb), reps=1)
+            times[dtype, b] = (ms, busy)
+            rows.append(d.batch_step(xb)[3][0])
+        (m1, b1), (m4, b4) = times[dtype, 1], times[dtype, len(frames)]
+        gap = float((rows[1].float() - rows[0].float()).abs().max()
+                    / rows[0].float().abs().max())
+        print(f"YOLOX-X batch step ({dtype}, letterbox + forward + "
+              f"postprocess at {YX_TEST_SIZE}): B=1 {m1:.2f} ms (device "
+              f"busy {b1:.2f}), B={len(frames)} {m4:.2f} ms (busy "
+              f"{b4:.2f}); B={len(frames)} / ({len(frames)} x B=1) "
+              f"{m4 / (len(frames) * m1):.3f} (busy "
+              f"{b4 / (len(frames) * b1):.3f}); {m4 / len(frames):.2f} ms "
+              f"per frame; frame 0's rows at B={len(frames)} vs B=1 max "
+              f"|diff| {gap:.3g} of their scale")
+    for m in convs:
+        m.cudnn = False
+    profile_step(lambda: det16.batch_step(x), times["bfloat16",
+                                                   len(frames)][0],
+                 reps=2, label=f"YOLOX-X bf16 batch step B={len(frames)}")
+    del det16, x
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_lockstep(device, engine, engine16, det):
+    """Phase 12: lockstep evaluation across sequences (see LS_SEEDS).
+    Returns K1's launches over the timed lockstep run."""
+    import numpy as np
+    import torch
+
+    import busca_tpu_torch.trackers.base as tbase
+    from busca_tpu_torch.eval.detector import (
+        track_frames_with_detector,
+        track_sequences_lockstep,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.ops import crop_cuda
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    t0 = time.perf_counter()
+    seqs = lockstep_sequences()
+    b = len(seqs)
+    lockstep_batch_vs_single(det, [s[0] for s in seqs])
+    # CMC off: the card host has no cv2
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    names = [f"seed{s}" for s in LS_SEEDS]
+
+    def run_lockstep():
+        tbase.Track.reset_id_counter()
+        trackers = [make_tracker("byte", kwargs, engine16, CROP_HW)
+                    for _ in seqs]
+        return track_sequences_lockstep(det, trackers,
+                                        [iter(f) for f in seqs], names=names)
+
+    # run 1, instrumented: the shape of every K1 launch, the third-round
+    # batches, and associate_many held against associate on the first
+    # frame with the most live requests
+    served, compared = [], [0]
+    service = tbase.service_deferred_updates
+
+    def spy(pending):
+        live = [req for _, _, req in pending if req.thresh > 0 and req.pool]
+        served.append(len(live))
+        if len(live) > max(compared[0], 1) and compared[0] < b:
+            lockstep_association_check(engine, engine16, live)
+            compared[0] = len(live)
+        return service(pending)
+
+    k1_shapes = set()
+    launch = crop_cuda.launch
+
+    def recorded_launch(frame, boxes, scratch, out, **kw):
+        k1_shapes.add((tuple(frame.shape[:2]), tuple(out.shape[1:3]),
+                       tuple(sorted(kw.items()))))
+        return launch(frame, boxes, scratch, out, **kw)
+
+    tbase.service_deferred_updates = spy
+    crop_cuda.launch = recorded_launch
+    try:
+        first = run_lockstep()
+    finally:
+        tbase.service_deferred_updates = service
+        crop_cuda.launch = launch
+    main_kw = tuple(sorted(K1_MAIN_KW.items()))
+    held = {(FRAME_HW, YX_LETTERBOX_HW, main_kw),
+            (YX_TEST_SIZE, CROP_HW, main_kw)}
+    print(f"lockstep loop: K1 (frame, output) shapes "
+          f"{sorted(s[:2] for s in k1_shapes)}; live third-round requests "
+          f"per frame {served}")
+    check(k1_shapes <= held, f"K1 ran at shapes phases 2 and 7 did not "
+          f"hold: {k1_shapes - held}")
+    check(compared[0] >= 2, "no lockstep frame had two live third rounds: "
+          "associate_many was never held")
+
+    # run 2, timed: the kernels line's launches
+    torch.cuda.synchronize()
+    crop_resize_cuda.launches = 0
+    lock = run_lockstep()
+    torch.cuda.synchronize()
+    k1_launches = crop_resize_cuda.launches
+    frames_total = sum(r.num_frames for r in lock)
+    wall_s = sum(r.track_time_s for r in lock)
+    check([r.num_frames for r in lock] == list(LS_LENGTHS),
+          f"lockstep frames {[r.num_frames for r in lock]}")
+    for a, c in zip(first, lock):
+        for (fa, ta, ia, _), (fc, tc, ic, _) in zip(a.results, c.results):
+            check(fa == fc and ia == ic and np.array_equal(
+                np.reshape(ta, (-1, 4)), np.reshape(tc, (-1, 4))),
+                f"{a.name} frame {fa}: two lockstep runs differ")
+
+    # run 3, profiled: the device's busy time over the lockstep frames
+    busy = sum(device_kernels_ms(run_lockstep, 1, warmup=False).values())
+
+    # each sequence alone through the pipelined loop
+    seq_s = 0.0
+    for res, frames in zip(lock, seqs):
+        tbase.Track.reset_id_counter()
+        solo = track_frames_with_detector(
+            det, make_tracker("byte", kwargs, engine16, CROP_HW), frames,
+            name=res.name)
+        seq_s += solo.track_time_s
+        relabel = [{}, {}]
+        worst = 0.0
+        for (fa, ta, ia, _), (fb, tb, ib, _) in zip(res.results,
+                                                    solo.results):
+            la = [relabel[0].setdefault(i, len(relabel[0])) for i in ia]
+            lb = [relabel[1].setdefault(i, len(relabel[1])) for i in ib]
+            check(fa == fb and la == lb,
+                  f"{res.name} frame {fa}: lockstep and sequential ids "
+                  f"differ ({ia} vs {ib})")
+            if len(ta):
+                worst = max(worst, float(np.abs(
+                    np.reshape(ta, (-1, 4)) - np.reshape(tb, (-1, 4))).max()))
+        check(worst <= LS_BOX_PX, f"{res.name}: lockstep tlwh off by "
+              f"{worst} px")
+        n_tracks = [len(r[2]) for r in res.results]
+        print(f"lockstep {res.name} ({res.num_frames} frames): output "
+              f"tracks per frame {n_tracks}; equal to its sequential "
+              f"pipelined loop (ids relabelled, tlwh max |diff| "
+              f"{worst:.3g} px)")
+        check(sum(n_tracks) > 0, f"{res.name}: no track was output")
+    lock_ms = wall_s * 1e3 / frames_total
+    seq_ms = seq_s * 1e3 / frames_total
+    det_ms = sum(r.stage_times["detector_s"] for r in lock) * 1e3
+    trk_ms = sum(r.stage_times["tracker_s"] for r in lock) * 1e3
+    print(f"lockstep (B={b}, {frames_total} sequence-frames over "
+          f"{max(LS_LENGTHS)} lockstep frames, BUSCA "
+          f"{engine16.config.dtype}): {lock_ms:.2f} ms per sequence-frame "
+          f"(waiting for the batch {det_ms / frames_total:.2f}, trackers "
+          f"{trk_ms / frames_total:.2f}, the rest, chiefly the next "
+          f"batch's upload and enqueue, "
+          f"{lock_ms - (det_ms + trk_ms) / frames_total:.2f}) against "
+          f"{seq_ms:.2f} ms/frame for "
+          f"the sequences one by one through the pipelined loop "
+          f"({seq_ms / lock_ms:.2f}x); device busy {busy:.1f} ms of "
+          f"{wall_s * 1e3:.1f} ms, idle "
+          f"{100 * (1 - busy / (wall_s * 1e3)):.1f}% over the lockstep "
+          f"frames; K1 launches {k1_launches}")
+    check(k1_launches >= b * max(LS_LENGTHS),
+          f"K1 launched {k1_launches} times, under one per batch frame")
+    lockstep_step_times(det, [s[0] for s in seqs])
+    print(f"phase 12: {time.perf_counter() - t0:.2f} s")
+    return k1_launches
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2921,6 +3304,8 @@ def main() -> int:
         k1["letterbox_centertrack"] = phase_k1_letterbox(
             device, CT_LETTERBOX_HW, "CenterTrack")
         k1["crops_centertrack"] = phase_k1_canvas_crops(device)
+        k1["crops_yolox"] = phase_k1_canvas_crops(device, YX_TEST_SIZE,
+                                                  "YOLOX")
         k1["pad_path"] = phase_k1_pad_path(device)
         k2 = phase_k2(device)
         engine, engine16 = phase_association(device)
@@ -2940,6 +3325,7 @@ def main() -> int:
         k1_served, k2_served = phase_server(device, engine16, yolox, tc32,
                                             centertrack)
         print(f"phase 10: {time.perf_counter() - t_phase:.2f} s")
+        k1_lockstep = phase_lockstep(device, engine, engine16, yolox)
         del yolox, tc32, centertrack
         t_phase = time.perf_counter()
         k1_deformable = phase_deformable(device, engine16)
@@ -2961,7 +3347,8 @@ def main() -> int:
                               "centertrack_loop": k1_ct,
                               "motdt_loop": k1_motdt,
                               **k1_served,
-                              "transcenter_deformable_loop": k1_deformable}
+                              "transcenter_deformable_loop": k1_deformable,
+                              "yolox_lockstep": k1_lockstep}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}
     k2["launches"] += k2_served

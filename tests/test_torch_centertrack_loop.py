@@ -249,7 +249,20 @@ def test_loop_with_busca_matches_jax(one_torch_thread, detectors,  # noqa
 
 
 def test_adapter_lockstep_prefetch_refused():
+    """The adapter's ECC prefetch, refused before the lockstep drivers were
+    ported, now forwards to its inner BYTE: nothing to align without BUSCA
+    or before a frame, a submitted solve after one."""
+    from test_torch_strongsort import StubEngine
+
     adapter = CenterTrackAdapter(ByteTrackerConfig())
     assert adapter.tracker.cfg.mot20 and adapter.tracker.det_thresh == 0.4
-    with pytest.raises(NotImplementedError, match="item 21"):
-        adapter.cmc_prefetch(np.zeros((8, 8, 3), np.uint8))
+    frame = np.random.RandomState(2).randint(0, 255, (64, 96, 3), np.uint8)
+    assert adapter.cmc_prefetch(frame) is None  # no BUSCA engine
+    adapter = CenterTrackAdapter(ByteTrackerConfig(use_busca=True),
+                                 StubEngine())
+    assert adapter.cmc_prefetch(frame) is None  # no previous frame
+    adapter.step([{"bbox": np.array([10.0, 10, 30, 50]), "score": 0.9,
+                   "class": 1}], frame, 1.0)
+    fut = adapter.cmc_prefetch(frame)
+    assert fut is not None and adapter.tracker._warp_hint is not None
+    np.testing.assert_allclose(fut.result()[1], np.eye(2, 3), atol=1e-4)

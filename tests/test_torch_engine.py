@@ -118,9 +118,11 @@ def test_engine_raises_for_unported_modes(shared):
                dict(debug_dir="/nonexistent")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             AssociationEngine(BuscaConfig(**SMALL), model, **kw)
+    # associate_many is ported (lockstep): no request and empty requests
+    # give nothing to score
     eng = AssociationEngine(BuscaConfig(**SMALL), model, crop_hw=(H, W))
-    with pytest.raises(NotImplementedError, match="associate_many"):
-        eng.associate_many([])
+    assert eng.associate_many([]) == []
+    assert eng.associate_many([([], [], None, [])]) == [(None, None)]
 
 
 def test_bank_lru_pinning_and_zero_slot():

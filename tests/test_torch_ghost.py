@@ -115,11 +115,33 @@ def test_busca_rescue_ghost():
 
 
 def test_lockstep_prefetch_refused():
+    """The lockstep drivers' ECC prefetch, refused before it was ported,
+    now runs: nothing to align before the first frame or on a static
+    camera; otherwise the solve is submitted with GHOST's recipe, its warp
+    equals the inline solve's, and the next update consumes the hint."""
+    from busca_tpu_torch.trackers import cmc
+
+    rng = np.random.RandomState(4)
+    frames = [rng.randint(0, 255, FRAME.shape, dtype=np.uint8)
+              for _ in range(2)]
+    frames[1] = np.roll(frames[0], 2, axis=1)
+    static = GhostTracker(GhostConfig(motion_compensation=True,
+                                      is_moving=False))
+    static.update(*_objects(0), frames[0])
+    assert static.cmc_prefetch(frames[1]) is None
     trk = GhostTracker(GhostConfig(motion_compensation=True))
-    for call in (lambda: trk.cmc_prefetch(FRAME),
-                 lambda: trk.set_warp_hint(None)):
-        with pytest.raises(NotImplementedError, match="item 21"):
-            call()
+    assert trk.cmc_prefetch(frames[0]) is None  # no previous frame
+    trk.update(*_objects(0), frames[0])
+    fut = trk.cmc_prefetch(frames[1])
+    assert fut is not None and trk._warp_hint is not None
+    cfg = trk.cfg
+    _, want = cmc.ecc_align(frames[1], frames[0],
+                            number_of_iterations=cfg.mc_num_iter,
+                            termination_eps=cfg.mc_termination_eps,
+                            gauss_filt_size=15)
+    np.testing.assert_array_equal(fut.result()[1], want)
+    trk.update(*_objects(1), frames[1])
+    assert trk._warp_hint is None
 
 
 # ---- GHOST + BUSCA against busca_tpu, frame by frame ---------------------

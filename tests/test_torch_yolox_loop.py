@@ -293,14 +293,17 @@ def test_mot_dir_cli_matches_jax(mot_sequence, engines, tmp_path):
 def test_cli_refuses_flags_of_later_items(mot_sequence, capsys):
     from busca_tpu_torch.eval import run as trun
 
+    # --lockstep and --mem-cap are ported (tests/test_torch_lockstep*.py);
+    # the modes of later items are refused, naming them
     base = ["--mot-dir", mot_sequence, "--device", "cpu"]
-    for argv, item in ((["--detector", "yolox-tiny", "--lockstep"], "21"),
-                       (["--detector", "yolox-tiny", "--mem-cap", "20"],
-                        "21"),
-                       (["--online-visualization"], "25")):
+    for argv, item in ((["--reid-stats", "frozen"], "items 7 and 24"),
+                       (["--reid-stats", "auto"], "items 7 and 24"),
+                       (["--detector", "yolox-tiny", "--lockstep",
+                         "--lockstep-dp", "2"], "item 23"),
+                       (["--online-visualization"], "item 25")):
         with pytest.raises(SystemExit):
             trun.main(base + argv)
-        assert f"item {item}" in capsys.readouterr().err
+        assert item in capsys.readouterr().err
 
 
 # bf16.  A random tiny YOLOX cannot be held frame by frame in bf16: its
