@@ -167,6 +167,23 @@ class AssociationEngine:
             x = (x / self._255 - self._mean) / self._std
         return x.flip(-1)  # BGR -> RGB (network.py:396-398)
 
+    def _scores(self, mem_crops, can_crops, mem_boxes, can_boxes, mask,
+                normalize_ims, can_weights=None, can_gather=None,
+                mem_group=None, can_group=None,
+                num_groups=1) -> torch.Tensor:
+        """One model call on device tensors: softmax probabilities
+        ``[B, C + extras]`` on the device (what
+        ``serve/export.py::export_associate_scorer`` traces)."""
+        logits = self.model(
+            self._prep(mem_crops, normalize_ims),
+            self._prep(can_crops, normalize_ims),
+            mem_boxes, can_boxes, mask,
+            can_weights=can_weights, can_gather=can_gather,
+            mem_group=mem_group, can_group=can_group,
+            num_groups=num_groups,
+        )
+        return torch.softmax(logits, dim=-1)
+
     @torch.inference_mode()
     def _probs(self, mem_crops, can_crops, mem_boxes, can_boxes, mask,
                normalize_ims, can_weights=None, can_gather=None,
@@ -177,19 +194,13 @@ class AssociationEngine:
         def opt(x):
             return None if x is None else self._tensor(x)
 
-        logits = self.model(
-            self._prep(mem_crops, normalize_ims),
-            self._prep(can_crops, normalize_ims),
-            self._tensor(mem_boxes),
-            self._tensor(can_boxes),
-            self._tensor(mask),
-            can_weights=opt(can_weights),
-            can_gather=opt(can_gather),
-            mem_group=opt(mem_group),
-            can_group=opt(can_group),
+        return self._scores(
+            mem_crops, can_crops, self._tensor(mem_boxes),
+            self._tensor(can_boxes), self._tensor(mask), normalize_ims,
+            can_weights=opt(can_weights), can_gather=opt(can_gather),
+            mem_group=opt(mem_group), can_group=opt(can_group),
             num_groups=num_groups,
-        )
-        return torch.softmax(logits, dim=-1).cpu().numpy()
+        ).cpu().numpy()
 
     # --------------------------------------------------------------- api --
     def associate(

@@ -181,7 +181,113 @@ class _Pending:
     held: tuple
 
 
-class YoloxDetector:
+class PipelinedFrameIO:
+    """The frame loop's host side of a detector step, shared by
+    :class:`YoloxDetector` and the exported steps'
+    :class:`~busca_tpu_torch.serve.detector.ArtifactDetector`: the pinned
+    upload on a copy stream, the non-blocking copies of a step's fixed-size
+    results into pinned buffers, and the wait that builds a
+    :class:`DetectorOutput`, finishing a frame whose fixed-step NMS had not
+    converged with the iterated NMS.  A subclass sets ``device``,
+    ``_copy_stream`` (None on the CPU), ``num_classes``, ``conf_thresh``,
+    ``nms_thresh``, ``max_outputs``, ``pre_nms_topk`` and
+    ``nms_fallbacks``."""
+
+    def put_frame(self, frame_bgr) -> _Upload:
+        """Start a uint8 BGR frame's upload: a pinned host copy, then a
+        non-blocking copy on the detector's copy stream that records an
+        event; :meth:`detect_async` waits on it on the device.  On the CPU
+        the frame is wrapped as it is."""
+        host = torch.from_numpy(np.ascontiguousarray(frame_bgr))
+        if self._copy_stream is None:
+            return _Upload(host, None, None)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        with torch.cuda.stream(self._copy_stream):
+            dev = pinned.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return _Upload(dev, ready, pinned)
+
+    def _readable(self, frames):
+        """Frames (a :meth:`put_frame` upload, host arrays or a tensor on
+        the device) as an upload the compute stream may read: a host input
+        is uploaded, and the compute stream waits for the upload's event.
+        Returns the upload and the compute stream (None on the CPU)."""
+        if not isinstance(frames, _Upload):
+            if torch.is_tensor(frames) and frames.device == self.device:
+                frames = _Upload(frames, None, None)
+            else:
+                frames = self.put_frame(np.asarray(frames))
+        stream = (torch.cuda.current_stream(self.device)
+                  if self._copy_stream is not None else None)
+        if frames.ready is not None:
+            stream.wait_event(frames.ready)
+            # the copy stream allocated it; the compute stream reads it
+            frames.tensor.record_stream(stream)
+        return frames, stream
+
+    @staticmethod
+    def _copy_out(stream, results):
+        """Non-blocking copies of a step's fixed-size ``results`` into
+        pinned host buffers and the event recorded after them; on the CPU
+        the results themselves and no event."""
+        if stream is None:
+            return list(results), None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in results]
+        for h, t in zip(host, results):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        return host, done
+
+    def wait(self, handle: _Pending) -> DetectorOutput:
+        """Wait for a :meth:`detect_async` handle's copies and build the
+        :class:`DetectorOutput`; its ``image`` is the device canvas.  A frame
+        whose NMS had not reached its fixed point in the enqueued steps is
+        finished here with the iterated NMS (the same fixed point)."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        return self._output(handle.rows, handle.valid, handle.converged,
+                            handle.pred, handle.canvas, handle.scale)
+
+    def _output(self, rows, valid, converged, pred, canvas, scale):
+        """One frame's host rows as a :class:`DetectorOutput`; a frame whose
+        NMS had not converged is finished with the iterated NMS on its
+        decoded rows ``pred``."""
+        if not bool(converged):
+            from busca_tpu_torch.ops.nms import yolox_postprocess
+
+            self.nms_fallbacks += 1
+            with torch.no_grad():
+                rows, valid = yolox_postprocess(
+                    pred, self.num_classes, self.conf_thresh,
+                    self.nms_thresh, self.max_outputs, self.pre_nms_topk)
+            rows, valid = rows.cpu(), valid.cpu()
+        return rows_to_detector_output(rows.numpy(), valid.numpy(), canvas,
+                                       scale)
+
+    def detect(self, frame) -> DetectorOutput:
+        """One uint8 BGR frame (original resolution), or a
+        :meth:`put_frame` upload."""
+        return self.wait(self.detect_async(frame))
+
+    def wait_batch(self, handle: _Pending) -> list:
+        """Wait for a :meth:`detect_batch_async` handle's copies and build
+        one :class:`DetectorOutput` per frame; frame i's ``image`` is
+        ``handle.canvas[i]``, a contiguous view on the device.  Each frame
+        whose NMS had not reached its fixed point is finished here on its
+        own, as :meth:`wait` does."""
+        if handle.done is not None:
+            handle.done.synchronize()
+        return [self._output(handle.rows[i], handle.valid[i],
+                             handle.converged[i], handle.pred[i],
+                             handle.canvas[i], handle.scale)
+                for i in range(handle.rows.shape[0])]
+
+
+class YoloxDetector(PipelinedFrameIO):
     """YOLOX wrapped for the per-frame tracking loop.
 
     Args:
@@ -233,6 +339,10 @@ class YoloxDetector:
         self._boxes = {}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+
+    @property
+    def num_classes(self) -> int:
+        return self.config.num_classes
 
     @classmethod
     def build(cls, size: str = "x", ckpt_path: Optional[str] = None,
@@ -297,55 +407,6 @@ class YoloxDetector:
         return self
 
     # --------------------------------------------------------------- api --
-    def put_frame(self, frame_bgr) -> _Upload:
-        """Start a uint8 BGR frame's upload: a pinned host copy, then a
-        non-blocking copy on the detector's copy stream that records an
-        event; :meth:`detect_async` waits on it on the device.  On the CPU
-        the frame is wrapped as it is."""
-        host = torch.from_numpy(np.ascontiguousarray(frame_bgr))
-        if self._copy_stream is None:
-            return _Upload(host, None, None)
-        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        pinned.copy_(host)
-        with torch.cuda.stream(self._copy_stream):
-            dev = pinned.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return _Upload(dev, ready, pinned)
-
-    def _readable(self, frames):
-        """Frames (a :meth:`put_frame` upload, host arrays or a tensor on
-        the device) as an upload the compute stream may read: a host input
-        is uploaded, and the compute stream waits for the upload's event.
-        Returns the upload and the compute stream (None on the CPU)."""
-        if not isinstance(frames, _Upload):
-            if torch.is_tensor(frames) and frames.device == self.device:
-                frames = _Upload(frames, None, None)
-            else:
-                frames = self.put_frame(np.asarray(frames))
-        stream = (torch.cuda.current_stream(self.device)
-                  if self._copy_stream is not None else None)
-        if frames.ready is not None:
-            stream.wait_event(frames.ready)
-            # the copy stream allocated it; the compute stream reads it
-            frames.tensor.record_stream(stream)
-        return frames, stream
-
-    @staticmethod
-    def _copy_out(stream, results):
-        """Non-blocking copies of a step's fixed-size ``results`` into
-        pinned host buffers and the event recorded after them; on the CPU
-        the results themselves and no event."""
-        if stream is None:
-            return list(results), None
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in results]
-        for h, t in zip(host, results):
-            h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
-        return host, done
-
     def detect_async(self, frame) -> _Pending:
         """Enqueue the step for one frame (a :meth:`put_frame` upload, a
         host array or a tensor on the device) and the non-blocking copies of
@@ -357,37 +418,6 @@ class YoloxDetector:
         host, done = self._copy_out(stream, (rows, valid, converged))
         return _Pending(*host, done, canvas, r, pred,
                         (frame, rows, valid, converged))
-
-    def wait(self, handle: _Pending) -> DetectorOutput:
-        """Wait for a :meth:`detect_async` handle's copies and build the
-        :class:`DetectorOutput`; its ``image`` is the device canvas.  A frame
-        whose NMS had not reached its fixed point in the enqueued steps is
-        finished here with the iterated NMS (the same fixed point)."""
-        if handle.done is not None:
-            handle.done.synchronize()
-        return self._output(handle.rows, handle.valid, handle.converged,
-                            handle.pred, handle.canvas, handle.scale)
-
-    def _output(self, rows, valid, converged, pred, canvas, scale):
-        """One frame's host rows as a :class:`DetectorOutput`; a frame whose
-        NMS had not converged is finished with the iterated NMS on its
-        decoded rows ``pred``."""
-        if not bool(converged):
-            from busca_tpu_torch.ops.nms import yolox_postprocess
-
-            self.nms_fallbacks += 1
-            with torch.no_grad():
-                rows, valid = yolox_postprocess(
-                    pred, self.config.num_classes, self.conf_thresh,
-                    self.nms_thresh, self.max_outputs, self.pre_nms_topk)
-            rows, valid = rows.cpu(), valid.cpu()
-        return rows_to_detector_output(rows.numpy(), valid.numpy(), canvas,
-                                       scale)
-
-    def detect(self, frame) -> DetectorOutput:
-        """One uint8 BGR frame (original resolution), or a
-        :meth:`put_frame` upload."""
-        return self.wait(self.detect_async(frame))
 
     # ------------------------------------------------------ lockstep --
     @torch.no_grad()
@@ -430,19 +460,6 @@ class YoloxDetector:
         host, done = self._copy_out(stream, (rows, valid, converged))
         return _Pending(*host, done, canvases, r, preds,
                         (frames, rows, valid, converged))
-
-    def wait_batch(self, handle: _Pending) -> list:
-        """Wait for a :meth:`detect_batch_async` handle's copies and build
-        one :class:`DetectorOutput` per frame; frame i's ``image`` is
-        ``handle.canvas[i]``, a contiguous view on the device.  Each frame
-        whose NMS had not reached its fixed point is finished here on its
-        own, as :meth:`wait` does."""
-        if handle.done is not None:
-            handle.done.synchronize()
-        return [self._output(handle.rows[i], handle.valid[i],
-                             handle.converged[i], handle.pred[i],
-                             handle.canvas[i], handle.scale)
-                for i in range(handle.rows.shape[0])]
 
     def detect_batch(self, frames_bgr) -> list:
         """One frame of each of B same-resolution sequences in one device

@@ -17,7 +17,8 @@ Modes:
     device canvas; or CenterTrack (``--tracker centertrack``, DLA-34,
     MobileNetV2 or tiny by ``--centertrack-arch``, its DCN by
     ``--centertrack-sampling``) with the tracker's dict tracks fed back as
-    its prior heatmap;
+    its prior heatmap; ``--detector-artifact DIR`` runs an exported YOLOX
+    step (``serve/export.py``) in place of ``--detector``;
   - ``--tracker strongsort --npy-det DIR``: StrongSORT's cached artifacts
     (deep_sort_app.py): detections with features from ``<seq>.npy``, the
     ``--min-confidence`` filter, optional ``--ecc-json`` camera warps;
@@ -424,7 +425,6 @@ def postprocess_result(res, out_path, link_model=None, gsi=False):
 # flags of busca_tpu's CLI whose code is not ported yet, and the ROADMAP.md
 # Queue 1 item that ports it
 LATER_FLAGS = {
-    "detector_artifact": 20,
     "det_ap": 24,
     "online_visualization": 25,
 }
@@ -744,6 +744,12 @@ def main(argv=None):
                                  "centertrack"],
                         help="the live detector run per frame; without it "
                              "--mot-dir reads det/det.txt (or --npy-det)")
+    parser.add_argument("--detector-artifact", default=None,
+                        help="a serve.export artifact directory to run "
+                             "instead of building the detector (the "
+                             "reference's --trt engine-file flow, "
+                             "tools/track.py:83,215-224); --lockstep takes a "
+                             "--batches family")
     parser.add_argument("--detector-ckpt", default=None,
                         help="official YOLOX .pth, published CenterTrack "
                              "DLA-34 .pth, or busca_tpu .npz (TransCenter: "
@@ -815,6 +821,8 @@ def main(argv=None):
     if args.detector == "centertrack" and args.tracker != "centertrack":
         parser.error("--detector centertrack needs --tracker centertrack "
                      "(dict IO)")
+    if args.detector_artifact and args.detector:
+        parser.error("--detector-artifact replaces --detector")
     if args.reid_stats != "batch":
         parser.error(f"--reid-stats {args.reid_stats} (frozen BN statistics "
                      "and the feature bank) is not ported yet (ROADMAP.md "
@@ -830,10 +838,11 @@ def main(argv=None):
                          f"{args.tracker} keeps no crop memory")
     if args.lockstep:
         npy = args.tracker == "strongsort" and args.npy_det
+        live = args.detector_artifact or args.detector not in (
+            None, "transcenter", "centertrack")
         cached = args.detector is None and args.tracker in (
             "byte", "sort", "ghost", "strongsort", "deepsort", "motdt")
-        if not (npy or cached) and args.detector in (None, "transcenter",
-                                                     "centertrack"):
+        if not (npy or cached or live):
             parser.error("--lockstep needs a yolox --detector, --tracker "
                          "strongsort --npy-det, or a cached-detection "
                          "byte/sort/ghost/strongsort/deepsort/motdt run")
@@ -861,11 +870,25 @@ def main(argv=None):
         return out
     if args.mot_dir:
         detector = None
-        if args.detector:
-            try:
+        try:
+            if args.detector_artifact:
+                from busca_tpu_torch.serve.export import artifact_kind
+                from busca_tpu_torch.serve.server import (
+                    load_artifact_detector,
+                )
+
+                if args.lockstep and artifact_kind(args.detector_artifact) \
+                        != "yolox_detector_batch_steps":
+                    parser.error("--lockstep with --detector-artifact needs "
+                                 "a --batches artifact family (python -m "
+                                 "busca_tpu_torch.serve.export --batches 1 2 "
+                                 "4 8)")
+                detector = load_artifact_detector(args.detector_artifact,
+                                                  args.device)
+            elif args.detector:
                 detector = build_detector(args)
-            except ValueError as e:
-                parser.error(str(e))
+        except ValueError as e:
+            parser.error(str(e))
         feature_extractor = link_model = None
         if args.reid_ckpt:
             from busca_tpu_torch.eval.features import ReidFeatureExtractor

@@ -14,13 +14,15 @@ ltrb box of one frame:
 - optional GHOST normalization ``(x/255 - mean)/std`` (0.299 blue std) and
   the BGR -> RGB flip.
 
-On a CUDA tensor :func:`crop_resize_normalize` launches the hand-written
-kernel (``ops/crop_cuda.py``, ``csrc/crop_resize.cu``); on a CPU tensor it
-runs the plain version below, which repeats the kernel's arithmetic op for
-op.  The kernel derives the box geometry itself and sums a box's clipped
-region only when its cutout leaves the frame: for a cutout inside the frame
-the pad value meets only taps of weight exactly 0, so it cannot change the
-output (``tests/test_torch_crop.py`` pins this on the plain version).
+:func:`crop_resize_normalize` calls one registered operator,
+``torch.ops.busca_tpu_torch.crop_resize`` (:func:`crop_resize_op`): on a
+CUDA tensor it launches the hand-written kernel (``ops/crop_cuda.py``,
+``csrc/crop_resize.cu``); on a CPU tensor it runs the plain version below,
+which repeats the kernel's arithmetic op for op.  The kernel derives the
+box geometry itself and sums a box's clipped region only when its cutout
+leaves the frame: for a cutout inside the frame the pad value meets only
+taps of weight exactly 0, so it cannot change the output
+(``tests/test_torch_crop.py`` pins this on the plain version).
 
 Region sums are exact: the plain version's integral image is an int64
 prefix sum, the kernel's sums are integer, and only the mean is formed in
@@ -240,12 +242,45 @@ def crop_resize_normalize(
       ``[N, out_h, out_w, 3]`` float32 crops on the frame's device.  A CUDA
       frame goes through kernel K1, a CPU frame through the plain version.
     """
-    out_hw = (int(out_hw[0]), int(out_hw[1]))
-    kw = dict(normalize=normalize, bgr_input=bgr_input,
-              rgb_output=rgb_output, quantize_uint8=quantize_uint8)
     if frame.is_cuda:
-        from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
-
         check_card_frame(frame)
-        return crop_resize_cuda(frame, boxes, out_hw, **kw)
-    return crop_resize_normalize_plain(frame, boxes, out_hw, **kw)
+    boxes = torch.as_tensor(boxes, dtype=torch.float32, device=frame.device)
+    return torch.ops.busca_tpu_torch.crop_resize(
+        frame, boxes, int(out_hw[0]), int(out_hw[1]), normalize, bgr_input,
+        rgb_output, quantize_uint8)
+
+
+# The op as one registered PyTorch operator, so that ``torch.export`` traces
+# it as a node (``serve/export.py``) and an exported program launches the
+# same kernel as the live path.  Registering runs no CUDA code and builds
+# nothing: K1 is built at its first launch.
+@torch.library.custom_op("busca_tpu_torch::crop_resize", mutates_args=(),
+                         device_types="cpu")
+def crop_resize_op(frame: torch.Tensor, boxes: torch.Tensor, out_h: int,
+                   out_w: int, normalize: bool, bgr_input: bool,
+                   rgb_output: bool, quantize_uint8: bool) -> torch.Tensor:
+    """:func:`crop_resize_normalize` as a registered op: the plain version
+    on the CPU, K1 on the card (``boxes``: float32 ``[N, 4]`` on the
+    frame's device)."""
+    return crop_resize_normalize_plain(
+        frame, boxes, (out_h, out_w), normalize=normalize,
+        bgr_input=bgr_input, rgb_output=rgb_output,
+        quantize_uint8=quantize_uint8)
+
+
+@crop_resize_op.register_kernel("cuda")
+def _crop_resize_k1(frame, boxes, out_h, out_w, normalize, bgr_input,
+                    rgb_output, quantize_uint8):
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    return crop_resize_cuda(frame, boxes, (out_h, out_w),
+                            normalize=normalize, bgr_input=bgr_input,
+                            rgb_output=rgb_output,
+                            quantize_uint8=quantize_uint8)
+
+
+@crop_resize_op.register_fake
+def _crop_resize_fake(frame, boxes, out_h, out_w, normalize, bgr_input,
+                      rgb_output, quantize_uint8):
+    return frame.new_empty((boxes.shape[0], out_h, out_w, 3),
+                           dtype=torch.float32)

@@ -34,8 +34,10 @@ request is reported and the sequence survives it.
 The device work per frame is the eval loop's, so the served ms/frame is the
 loop's plus one frame's trip through the socket and its upload.  One
 sequence per connection; connections are served one at a time per
-:meth:`TrackingServer.serve_unix` loop; scale out with processes, one card
-each.  The lockstep server (``--lockstep``) is ROADMAP.md item 21.
+:meth:`TrackingServer.serve_unix` loop.  ``--lockstep`` serves concurrent
+connections instead, one batched device step per tick
+(:mod:`busca_tpu_torch.serve.lockstep`); ``--detector-artifact`` serves an
+exported detector (:mod:`busca_tpu_torch.serve.export`).
 """
 
 from __future__ import annotations
@@ -370,7 +372,9 @@ def build_tracker_runtime(args):
     tracker kwargs first, explicit flags over them.  ``args`` needs
     ``use_busca``, ``tracker`` and ``reid_ckpt``; ``busca_config``,
     ``busca_ckpt``, ``busca_dtype``, ``device``, ``seed``, ``crop_hw``,
-    ``track_thresh`` and ``cmc_scale`` are read where present."""
+    ``track_thresh``, ``cmc_scale`` and ``mem_cap`` are read where present.
+    An invalid ``mem_cap`` raises ``ValueError`` here, at start-up, not in
+    the factory on a client's first connection."""
     from busca_tpu_torch.eval import run as run_mod
 
     device = getattr(args, "device", "cuda")
@@ -399,6 +403,16 @@ def build_tracker_runtime(args):
         tracker_kwargs["track_thresh"] = 0.6
     if getattr(args, "cmc_scale", 1.0) != 1.0:
         tracker_kwargs["cmc_scale"] = args.cmc_scale
+    if getattr(args, "mem_cap", None) is not None:
+        if args.mem_cap < 4:
+            raise ValueError(
+                f"--mem-cap must be >= 4 (recommended >= ~5*seq_len), "
+                f"got {args.mem_cap}")
+        if args.tracker not in run_mod.MEM_CAP_TRACKERS:
+            raise ValueError(
+                f"--mem-cap only applies to the byte-family trackers "
+                f"{run_mod.MEM_CAP_TRACKERS}, not --tracker {args.tracker}")
+        tracker_kwargs["mem_cap"] = args.mem_cap
 
     def factory():
         trk = run_mod.make_tracker(args.tracker, dict(tracker_kwargs), engine,
@@ -409,10 +423,25 @@ def build_tracker_runtime(args):
     return engine, factory
 
 
+def load_artifact_detector(artifact_dir: str, device="cuda"):
+    """The detector of a ``serve/export.py`` artifact directory: an
+    ``ArtifactBatchDetector`` for a ``--batches`` family, else an
+    ``ArtifactDetector`` (both CLIs' ``--detector-artifact``)."""
+    from busca_tpu_torch.serve.detector import (
+        ArtifactBatchDetector,
+        ArtifactDetector,
+    )
+
+    from busca_tpu_torch.serve.export import artifact_kind
+
+    if artifact_kind(artifact_dir) == "yolox_detector_batch_steps":
+        return ArtifactBatchDetector(artifact_dir, device=device)
+    return ArtifactDetector(artifact_dir, device=device)
+
+
 # busca_tpu's server flags whose machinery is not ported yet, and the
 # ROADMAP.md Queue 1 item that ports it
-LATER_FLAGS = {"detector_artifact": "20", "lockstep": "21", "mem_cap": "21",
-               "tick_timeout": "21", "lockstep_dp": "23"}
+LATER_FLAGS = {"lockstep_dp": "23"}
 DETECTORS = ("yolox-tiny", "yolox-s", "yolox-m", "yolox-l", "yolox-x",
              "transcenter", "centertrack")
 
@@ -429,6 +458,10 @@ def main(argv=None):
     p.add_argument("--socket", required=True, help="unix socket path")
     p.add_argument("--detector", default=None, choices=DETECTORS,
                    help="the live detector")
+    p.add_argument("--detector-artifact", default=None,
+                   help="a serve.export artifact directory to serve instead "
+                        "of a live detector: a single-frame step, or a "
+                        "--batches family for --lockstep")
     p.add_argument("--detector-ckpt", default=None,
                    help="official YOLOX .pth, published CenterTrack DLA-34 "
                         ".pth, or busca_tpu .npz; default: random weights "
@@ -449,6 +482,13 @@ def main(argv=None):
     p.add_argument("--track-thresh", type=float, default=None,
                    help="first-round score threshold; default: the YAML "
                         "bundle's with --use-busca, else 0.6")
+    p.add_argument("--mem-cap", type=int, default=None,
+                   help="bound each track's appearance memory to this many "
+                        "entries (a dense recent tail and an even-stride "
+                        "archive) for long streams; default: unbounded, the "
+                        "reference's semantics; >= 4, ~5*seq_len "
+                        "recommended; byte-family, strongsort, deepsort and "
+                        "ghost trackers")
     p.add_argument("--reid-ckpt", default=None,
                    help="ReID checkpoint for the feature trackers "
                         "(strongsort, deepsort, ghost, motdt)")
@@ -475,6 +515,12 @@ def main(argv=None):
     p.add_argument("--vertical-thresh", type=float, default=None,
                    help="w/h output filter; default 1.6, off for --tracker "
                         "centertrack; 0 turns it off")
+    p.add_argument("--lockstep", action="store_true",
+                   help="serve concurrent connections with one batched "
+                        "device step per tick (serve/lockstep.py) instead "
+                        "of one connection at a time")
+    p.add_argument("--tick-timeout", type=float, default=0.010,
+                   help="the lockstep straggler wait per tick, seconds")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights of a model without a "
@@ -499,8 +545,12 @@ def main(argv=None):
                 "(ROADMAP.md Queue 1 items 7 and 24)")
     if args.use_busca and not args.busca_config:
         p.error("--use-busca requires --busca-config")
-    if args.detector is None:
-        p.error("pick --detector")
+    if args.detector is None and not args.detector_artifact:
+        p.error("pick --detector or --detector-artifact")
+    if args.lockstep and not args.detector_artifact and args.detector in (
+            "transcenter", "centertrack"):
+        p.error(f"{args.detector} cannot lockstep: its detector is stateful "
+                "per sequence and takes per-frame tracker feedback")
     if args.detector == "centertrack" and args.tracker != "centertrack":
         p.error("--detector centertrack needs --tracker centertrack")
 
@@ -510,12 +560,24 @@ def main(argv=None):
 
     set_card_precision()
     try:
-        detector = build_detector(args)
+        if args.detector_artifact:
+            from busca_tpu_torch.serve.export import artifact_kind
+
+            if args.lockstep and artifact_kind(args.detector_artifact) != \
+                    "yolox_detector_batch_steps":
+                p.error("--lockstep needs a batch-capable detector: a live "
+                        "--detector or a --batches artifact family "
+                        "(python -m busca_tpu_torch.serve.export --batches "
+                        "1 2 4 8)")
+            detector = load_artifact_detector(args.detector_artifact,
+                                              args.device)
+        else:
+            detector = build_detector(args)
+            if args.detector == "centertrack":
+                detector = CenterTrackRunnerDetector(detector)
+        _, factory = build_tracker_runtime(args)
     except ValueError as e:
         p.error(str(e))
-    if args.detector == "centertrack":
-        detector = CenterTrackRunnerDetector(detector)
-    _, factory = build_tracker_runtime(args)
 
     snapshot_key = None
     if args.snapshot_key_file:
@@ -536,9 +598,17 @@ def main(argv=None):
     elif vthresh <= 0:
         vthresh = None
 
-    server = TrackingServer(detector, factory, min_box_area=min_area,
-                            vertical_thresh=vthresh,
-                            snapshot_key=snapshot_key)
+    if args.lockstep:
+        from busca_tpu_torch.serve.lockstep import LockstepTrackingServer
+
+        server = LockstepTrackingServer(
+            detector, factory, tick_timeout=args.tick_timeout,
+            min_box_area=min_area, vertical_thresh=vthresh,
+            snapshot_key=snapshot_key)
+    else:
+        server = TrackingServer(detector, factory, min_box_area=min_area,
+                                vertical_thresh=vthresh,
+                                snapshot_key=snapshot_key)
     print(f"serving on {args.socket}", flush=True)
     server.serve_unix(args.socket, max_connections=args.max_connections)
 

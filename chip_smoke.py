@@ -119,7 +119,25 @@ Phases (each failure exits non-zero before the result line):
    share over the lockstep frames, and the batch step at B=1 and B=4 in
    float32 and bf16, and in float32 through cuDNN (which the float32 YOLOX
    does not use on the card: ``precision.gemm_conv2d``);
-13. the ``kernels`` JSON line, then the result line
+13. the serving stack: (a) phase 7's pipelined loop over 10 frames on the
+   main thread, on a fresh worker thread and again on that thread, each
+   split into its detector and tracker stages, and the ops whose host
+   time grows on a fresh thread (CPU profile); (b) phase 12's sequences
+   served by ``LockstepTrackingServer`` behind phase 7's YOLOX-X on a unix
+   socket (its accept loop on this thread, one client thread per stream):
+   each stream equals its own in-process pipelined loop (ids relabelled),
+   most ticks hold every active stream, a stream snapshotted after frame
+   5 and restored over a new connection equals its unbroken loop; ms per
+   sequence-frame against phases 12 and 10, and the device's idle share;
+   (c) the YOLOX-X step exported with ``torch.export`` at 1080x1920
+   (baked) and as a (1, 2, 4) batch family (unbaked): the program holds
+   the registered crop op and cuDNN-free convolutions, its outputs equal
+   the live step's bit for bit (float32 and bf16), 20 frames of
+   ``ArtifactDetector`` through the pipelined loop equal the live loop,
+   and the lockstep server behind ``ArtifactBatchDetector`` equals (b);
+   export and load seconds, bytes, the program's time against the live
+   step's; K1's launches on the served and exported paths;
+14. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -264,6 +282,17 @@ TC_DEFORM_FRAMES = 6
 LS_SEEDS, LS_LENGTHS, LS_START = (0, 3, 5, 7), (10, 10, 7, 10), 10
 LS_ROW_TOL, LS_BOX_PX = 1e-4, 0.1
 LS_PROB_RTOL, LS_PROB_ATOL, LS_BF16_PROB_BAR = 2e-4, 2e-6, 0.0242
+# Phase 13: the serving stack.  13a runs phase 7's pipelined loop over
+# TH_FRAMES frames on the main thread and on worker threads; 13b serves
+# phase 12's sequences through the lockstep server (SL_TICK_S, the server
+# CLI's default tick timeout), one stream snapshotted after SL_CUT frames;
+# 13c exports phase 7's step (baked) and a batch family at ART_BATCHES
+# (unbaked: one copy of the weights on disk, not one per bucket).
+TH_FRAMES = 10
+SL_TICK_S = 0.010
+SL_CUT = 5
+ART_BATCHES = (1, 2, 4)
+ART_ROUNDS = 5
 # a stream hold lasts three times the host time it covers, and at least
 # this long: a busy host's enqueue must not outrun it
 HOLD_MIN_S = 0.25
@@ -500,17 +529,34 @@ def k1_case(device, seed, boxes_fn, out_hw, frame_hw=FRAME_HW, low=0):
 
 
 def hold_k1(label, frame, boxes, scratch, out, kw, timed):
+    """K1 through the registered op (``crop_resize_normalize``, what every
+    path calls) against the plain version; one call must launch K1 once.
+    When ``timed``, also the ctypes wrapper alone back to back
+    (``wrapper_ms``): the op's dispatch cost is the difference."""
     from busca_tpu_torch.ops import crop_cuda
-    from busca_tpu_torch.ops.crop import crop_resize_normalize_plain
+    from busca_tpu_torch.ops.crop import (
+        crop_resize_normalize,
+        crop_resize_normalize_plain,
+    )
     from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
 
     out_hw = tuple(out.shape[1:3])
-    return hold_against_plain(
+    launches = crop_resize_cuda.launches
+    crop_resize_normalize(frame, boxes, out_hw, **kw)
+    check(crop_resize_cuda.launches == launches + 1,
+          f"{label}: the registered op did not launch K1 once")
+    crop_resize_cuda.launches = launches
+    result = hold_against_plain(
         label,
-        lambda: crop_resize_cuda(frame, boxes, out_hw, **kw),
+        lambda: crop_resize_normalize(frame, boxes, out_hw, **kw),
         lambda: crop_resize_normalize_plain(frame, boxes, out_hw, **kw),
         lambda: crop_cuda.launch(frame, boxes, scratch, out, **kw),
         crop_resize_cuda, K1_TOL, out.shape, timed=timed)
+    if timed:
+        result["wrapper_ms"] = cuda_time_ms(
+            lambda: crop_resize_cuda(frame, boxes, out_hw, **kw))
+        crop_resize_cuda.launches = launches
+    return result
 
 
 def report_k1(label, result, frame_hw, boxes_np, out):
@@ -518,7 +564,8 @@ def report_k1(label, result, frame_hw, boxes_np, out):
     kernel-alone, plain and bound times."""
     result["bound_ms"], bound_by, nbytes = bound_ms(frame_hw, boxes_np,
                                                     out.numel())
-    print(f"K1 {label}: op {result['ms']:.4f} ms (kernel alone "
+    print(f"K1 {label}: op {result['ms']:.4f} ms (the registered op; the "
+          f"ctypes wrapper alone {result['wrapper_ms']:.4f} ms, kernel alone "
           f"{result['kernel_ms']:.4f} ms), plain {result['plain_ms']:.4f} "
           f"ms back to back; on the device alone op "
           f"{result['device_ms']:.4f} ms, kernel "
@@ -2518,7 +2565,7 @@ def served_frames(client, frames, label, first=1):
 
 
 def phase_server_stream(label, det, make_factory, frames, cut, filters,
-                        counters):
+                        counters, served=None):
     """One detector configuration through the port's ``TrackingServer``:
     the in-process serial loop (``track_frames_with_detector``), the same
     frames served over a unix socket (replies equal the loop's exactly;
@@ -2595,6 +2642,8 @@ def phase_server_stream(label, det, make_factory, frames, cut, filters,
           f"{steady - loop_ms:+.2f}); replies equal the loop's on every "
           f"frame; output tracks per frame {n_tracks}; {counts}")
     check(sum(n_tracks[cut:]) > 0, f"{label}: no track after frame {cut}")
+    if served is not None:
+        served[label] = steady
 
     # the interrupted stream: `cut` frames, a snapshot, the rest elsewhere
     client = TrackingClient.connect_unix(path)
@@ -2680,10 +2729,10 @@ def phase_server(device, engine, yolox, transcenter, centertrack):
             return factory
         return make_factory
 
-    out = {}
+    out, served = {}, {}
     (out["server_yolox"],) = phase_server_stream(
         "yolox", yolox, factories("byte", YX_TRACK_THRESH), frames, SV_CUT,
-        (100.0, 1.6), [crop_resize_cuda])
+        (100.0, 1.6), [crop_resize_cuda], served)
     few = frames[:SV_FEEDBACK_FRAMES]
     out["server_transcenter"], k2 = phase_server_stream(
         "transcenter", transcenter,
@@ -2698,7 +2747,7 @@ def phase_server(device, engine, yolox, transcenter, centertrack):
     for key, k1 in out.items():
         check(k1 >= SV_FEEDBACK_FRAMES, f"{key}: K1 launched {k1} times, "
               "under one per frame")
-    return out, k2
+    return out, k2, served["yolox"]
 
 
 def msda_inputs(seed=11):
@@ -3223,11 +3272,13 @@ def phase_lockstep(device, engine, engine16, det):
 
     # each sequence alone through the pipelined loop
     seq_s = 0.0
+    solos = []
     for res, frames in zip(lock, seqs):
         tbase.Track.reset_id_counter()
         solo = track_frames_with_detector(
             det, make_tracker("byte", kwargs, engine16, CROP_HW), frames,
             name=res.name)
+        solos.append(solo)
         seq_s += solo.track_time_s
         relabel = [{}, {}]
         worst = 0.0
@@ -3270,7 +3321,483 @@ def phase_lockstep(device, engine, engine16, det):
           f"K1 launched {k1_launches} times, under one per batch frame")
     lockstep_step_times(det, [s[0] for s in seqs])
     print(f"phase 12: {time.perf_counter() - t0:.2f} s")
-    return k1_launches
+    return k1_launches, {"seqs": seqs, "solo": solos, "lock_ms": lock_ms}
+
+
+def yolox_frames(n):
+    """Phase 7's frames: the dropout sequence at 1080x1920, its first
+    ``n``."""
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    return [seq.frame(t) for t in range(n)]
+
+
+def yolox_loop(det, engine, frames):
+    """Phase 7's pipelined loop: ByteTrack + BUSCA (``engine``) behind
+    ``det`` (a ``YoloxDetector`` or an ``ArtifactDetector``) over
+    ``frames``, the track ids counted from 1."""
+    from busca_tpu_torch.eval.detector import track_frames_with_detector
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.trackers.base import Track
+
+    Track.reset_id_counter()
+    # CMC off: the card host has no cv2
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    return track_frames_with_detector(
+        det, make_tracker("byte", kwargs, engine, CROP_HW), frames,
+        name="yolox")
+
+
+def loop_split(res):
+    """``(ms/frame, detector ms/frame, tracker ms/frame)`` of a loop."""
+    n = res.num_frames
+    return (1e3 / res.fps, res.stage_times["detector_s"] * 1e3 / n,
+            res.stage_times["tracker_s"] * 1e3 / n)
+
+
+def cpu_profile(fn):
+    """``fn()`` under torch.profiler's CPU activity, started on the calling
+    thread: ``(result, {op: self CPU ms})``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = fn()
+    return res, {e.key: e.self_cpu_time_total / 1e3
+                 for e in prof.key_averages()}
+
+
+def phase_thread_cost(det, engine, frames):
+    """13a: the pipelined YOLOX-X loop on the main thread, on a fresh worker
+    thread, and again on that same thread; then each under the CPU
+    profiler (the main thread against another fresh thread), the ops whose
+    host time grows the most on the fresh thread printed.  Every run's
+    output must equal the main thread's.  Returns ms/frame by run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    n = len(frames)
+    want = loop_replies(yolox_loop(det, engine, frames))  # warm
+    runs = {"the main thread": yolox_loop(det, engine, frames)}
+    with ThreadPoolExecutor(1) as pool:
+        for label in ("a fresh worker thread", "that worker thread again"):
+            runs[label] = pool.submit(yolox_loop, det, engine,
+                                      frames).result()
+    for label, res in runs.items():
+        check(loop_replies(res) == want,
+              f"thread cost: the loop on {label} differs")
+        total, det_ms, trk_ms = loop_split(res)
+        print(f"thread cost (the pipelined YOLOX-X loop, {n} frames, BUSCA "
+              f"{engine.config.dtype}) on {label}: {total:.2f} ms/frame "
+              f"(detector {det_ms:.2f}, tracker {trk_ms:.2f})")
+    _, on_main = cpu_profile(lambda: yolox_loop(det, engine, frames))
+    with ThreadPoolExecutor(1) as pool:
+        _, on_fresh = pool.submit(
+            cpu_profile, lambda: yolox_loop(det, engine, frames)).result()
+    grown = sorted(((on_fresh.get(k, 0.0) - on_main.get(k, 0.0)) / n, k)
+                   for k in set(on_main) | set(on_fresh))[::-1]
+    print("thread cost profile, self CPU ms per frame on a fresh thread "
+          "against the main thread (profiled runs): " + ", ".join(
+              f"{k} {on_fresh.get(k, 0.0) / n:.2f} vs "
+              f"{on_main.get(k, 0.0) / n:.2f}" for _, k in grown[:8]))
+    return {label: loop_split(res)[0] for label, res in runs.items()}
+
+
+def relabelled_gap(label, got, want):
+    """``got`` and ``want`` as ``(frame id, tlwhs, ids)`` rows: equal frame
+    ids and ids after relabelling each by first appearance; returns the
+    largest tlwh |diff|."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{label}: {len(got)} frames, not "
+          f"{len(want)}")
+    relabel = [{}, {}]
+    worst = 0.0
+    for (fa, ta, ia), (fb, tb, ib) in zip(got, want):
+        la = [relabel[0].setdefault(i, len(relabel[0])) for i in ia]
+        lb = [relabel[1].setdefault(i, len(relabel[1])) for i in ib]
+        check(fa == fb and la == lb, f"{label} frame {fa}: ids differ "
+              f"after relabelling ({ia} vs {ib})")
+        if len(ta):
+            worst = max(worst, float(np.abs(np.reshape(ta, (-1, 4))
+                                            - np.reshape(tb, (-1, 4))).max()))
+    return worst
+
+
+def reply_rows(replies):
+    return [(r["frame_id"], [t["tlwh"] for t in r["tracks"]],
+             [t["id"] for t in r["tracks"]]) for r in replies]
+
+
+def serve_lockstep(detector, factory, seqs, snapshot_stream=None,
+                   profiled=False):
+    """The port's ``LockstepTrackingServer`` behind ``detector`` on a unix
+    socket in a fresh temp dir, its accept loop on this thread (its ticks
+    on the server's scheduler thread), one client thread per sequence
+    (frames rendered beforehand) sending its frames as fast as its replies
+    come.  The ``snapshot_stream`` client snapshots
+    after SL_CUT frames, stops, and restores over a new connection.
+    Returns the replies per stream, the ticks' ``(batch, active streams)``,
+    the wall seconds from the first frame sent to the last reply, and the
+    device's busy ms when ``profiled``."""
+    import tempfile
+    import threading
+    import types
+
+    from busca_tpu_torch.serve.lockstep import LockstepTrackingServer
+    from busca_tpu_torch.serve.server import TrackingClient
+
+    server = LockstepTrackingServer(detector, factory,
+                                    tick_timeout=SL_TICK_S,
+                                    snapshot_key=SV_KEY)
+    ticks = []
+
+    def detect_batch(frames):
+        ticks.append((len(frames), server._active_count()))
+        return detector.detect_batch(frames)
+
+    server.detector = types.SimpleNamespace(detect_batch=detect_batch)
+    path = os.path.join(tempfile.mkdtemp(prefix="busca_lockstep_"),
+                        "ls.sock")
+    check(len(path.encode()) < 100, f"socket path too long: {path}")
+    results, errors = {}, []
+
+    def connect():
+        t0 = time.perf_counter()
+        while True:
+            try:
+                return TrackingClient.connect_unix(path)
+            except (FileNotFoundError, ConnectionRefusedError):
+                check(time.perf_counter() - t0 < SV_CONNECT_S,
+                      f"the lockstep server on {path} never came up")
+                time.sleep(0.01)
+
+    def client(i):
+        try:
+            c = connect()
+            check(c.start(f"seq{i}")["ok"], f"stream {i}: start failed")
+            out, blob = [], None
+            t_first = time.perf_counter()
+            for k, frame in enumerate(seqs[i]):
+                if i == snapshot_stream and k == SL_CUT:
+                    header, blob = c.snapshot()
+                    check(header.get("frame_id") == SL_CUT,
+                          f"stream {i}: snapshot at {header}")
+                    c.stop()
+                    c = connect()
+                    r = c.restore(blob)
+                    check(r.get("ok") and r.get("frame_id") == SL_CUT,
+                          f"stream {i}: restore failed: {r}")
+                r = c.frame(frame)
+                check(r.get("ok"), f"stream {i} frame {k + 1}: "
+                      f"{r.get('error')}")
+                out.append(r)
+            results[i] = (out, t_first, time.perf_counter(),
+                          None if blob is None else len(blob))
+            c.stop()
+        except Exception as e:  # reported on the main thread
+            errors.append(f"stream {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(seqs))]
+    for t in threads:
+        t.start()
+    connections = len(seqs) + (snapshot_stream is not None)
+
+    def serve():
+        server.serve_unix(path, max_connections=connections)
+
+    busy = None
+    if profiled:
+        busy = sum(device_kernels_ms(serve, 1, warmup=False).values())
+    else:
+        serve()
+    for t in threads:
+        t.join(timeout=120)
+    check(not errors, "; ".join(errors))
+    check(len(results) == len(seqs), "a client did not finish")
+    replies = [results[i][0] for i in range(len(seqs))]
+    wall_s = (max(r[2] for r in results.values())
+              - min(r[1] for r in results.values()))
+    blob = next((r[3] for r in results.values() if r[3]), None)
+    return replies, ticks, wall_s, busy, blob
+
+
+def phase_lockstep_server(det, engine, lockstep, served_ms):
+    """13b: phase 12's sequences served by the lockstep server behind phase
+    7's YOLOX-X, ByteTrack + BUSCA (``engine``, bf16): each stream equals
+    its own in-process pipelined loop (ids relabelled, tlwh within
+    LS_BOX_PX); most ticks hold every active stream; a stream snapshotted
+    after SL_CUT frames and restored over a new connection equals its
+    unbroken loop.  Returns the served replies and K1's launches over the
+    timed run."""
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    seqs, solos = lockstep["seqs"], lockstep["solo"]
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+
+    def factory():
+        return make_tracker("byte", kwargs, engine, CROP_HW)
+
+    total = sum(len(s) for s in seqs)
+    Track.reset_id_counter()
+    crop_resize_cuda.launches = 0
+    replies, ticks, wall_s, _, _ = serve_lockstep(det, factory, seqs)
+    k1 = crop_resize_cuda.launches
+    worst = max(relabelled_gap(
+        f"lockstep server stream {i}", reply_rows(got),
+        [(f, t, ids) for f, t, ids, _ in solo.results])
+        for i, (got, solo) in enumerate(zip(replies, solos)))
+    check(worst <= LS_BOX_PX, f"the lockstep server is off by {worst} px")
+    full = sum(1 for b, active in ticks if b == active)
+    print(f"lockstep server ({len(seqs)} streams of {[len(s) for s in seqs]}"
+          f" frames at {FRAME_HW[0]}x{FRAME_HW[1]}, tick timeout "
+          f"{SL_TICK_S * 1e3:.0f} ms): each stream equals its in-process "
+          f"pipelined loop (ids relabelled, tlwh max |diff| {worst:.3g} px); "
+          f"ticks (batch, active streams) {ticks}: {full} of {len(ticks)} "
+          f"hold every active stream; K1 launches {k1}")
+    check(full * 2 > len(ticks), f"the ticks did not coalesce: {ticks}")
+    Track.reset_id_counter()
+    _, _, prof_wall_s, busy, _ = serve_lockstep(det, factory, seqs,
+                                                profiled=True)
+    ms = wall_s * 1e3 / total
+    print(f"lockstep server: {ms:.2f} ms per sequence-frame ({total} "
+          f"sequence-frames in {wall_s * 1e3:.1f} ms, first frame sent to "
+          f"last reply) against {lockstep['lock_ms']:.2f} for phase 12's "
+          f"in-process lockstep and {served_ms:.2f} ms/frame for phase 10's "
+          f"sequential server (one stream, frames 2 on); device busy "
+          f"{busy:.1f} ms, idle {100 * (1 - busy / (wall_s * 1e3)):.1f}% "
+          f"of the timed run (the profiled run took "
+          f"{prof_wall_s * 1e3:.1f} ms)")
+    Track.reset_id_counter()
+    snap, _, _, _, blob = serve_lockstep(det, factory, seqs,
+                                         snapshot_stream=0)
+    gap = relabelled_gap(
+        "restored lockstep stream", reply_rows(snap[0]),
+        [(f, t, ids) for f, t, ids, _ in solos[0].results])
+    check(gap <= LS_BOX_PX, f"the restored stream is off by {gap} px")
+    print(f"lockstep server: stream 0 snapshotted after frame {SL_CUT} "
+          f"({blob} bytes, signed), restored over a new connection: equals "
+          f"its unbroken loop (tlwh max |diff| {gap:.3g} px)")
+    check(sum(len(r["tracks"]) for rs in replies for r in rs) > 0,
+          "the lockstep server output no track")
+    return replies, k1
+
+
+def alternating_ms(fns, rounds=None, reps=5):
+    """ms per call of each callable (:func:`cuda_time_ms`, ``reps`` calls)
+    in each of ``rounds`` rounds (ART_ROUNDS) that take them in turn: a
+    host-bound step's time drifts with the shared host's load, and
+    alternating keeps each comparison within one stretch of time.  Returns
+    the rounds' times per callable."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds or ART_ROUNDS):
+        for key, fn in fns.items():
+            times[key].append(cuda_time_ms(fn, reps=reps, warmup=1))
+    return times
+
+
+def live_step(det, frame):
+    """The live step over one device frame: the letterbox, the step and its
+    outputs in the exported program's order."""
+    canvas, _ = det.prep(frame)
+    rows, valid, converged, pred = det.step(canvas)
+    return rows, valid, converged, canvas, pred
+
+
+def phase_artifacts(det, engine, lockstep, served_replies):
+    """13c: phase 7's YOLOX-X step exported at 1080x1920 (baked) and a
+    batch family at ART_BATCHES (unbaked), both loaded: the program holds
+    the crop op and its outputs equal the live step's bit for bit; 20
+    frames of ``ArtifactDetector`` through the pipelined loop equal the
+    live loop; the lockstep server behind ``ArtifactBatchDetector`` equals
+    13b's replies; export and load seconds, bytes, and the program's time
+    against the live step's in float32 and bf16 (its rows equal the live
+    bf16 step's).  Returns K1's launches in the artifact loop and the
+    artifact lockstep server."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detector import YoloxDetector
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.serve.detector import (
+        ArtifactBatchDetector,
+        ArtifactDetector,
+    )
+    from busca_tpu_torch.serve.export import (
+        export_detector_batch_steps,
+        export_detector_step,
+        load_artifact,
+    )
+    from busca_tpu_torch.trackers.base import Track
+
+    frames = yolox_frames(YX_FRAMES)
+    root = tempfile.mkdtemp(prefix="busca_artifacts_")
+    out = {}
+    try:
+        dirs = {k: os.path.join(root, k) for k in ("step", "family",
+                                                     "bf16")}
+        t0 = time.perf_counter()
+        m_step = export_detector_step(det, FRAME_HW, dirs["step"])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m_fam = export_detector_batch_steps(det, FRAME_HW, ART_BATCHES,
+                                            dirs["family"],
+                                            bake_weights=False)
+        fam_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        art = load_artifact(dirs["step"], device=det.device)
+        load_s = time.perf_counter() - t0
+        state = dict(det.model.state_dict())
+        t0 = time.perf_counter()
+        fam = ArtifactBatchDetector(dirs["family"], variables=state,
+                                    device=det.device)
+        fam_load_s = time.perf_counter() - t0
+        print(f"artifacts: the YOLOX-X step at {FRAME_HW[0]}x{FRAME_HW[1]} "
+              f"exported (baked) in {export_s:.2f} s, {m_step['size_bytes']} "
+              f"bytes, loaded in {load_s:.2f} s; the batch family "
+              f"{list(ART_BATCHES)} (unbaked) exported in {fam_s:.2f} s, "
+              f"bytes {m_fam['size_bytes']}, loaded in {fam_load_s:.2f} s")
+        nodes = [str(n.target) for n in art.program.graph.nodes
+                 if n.op == "call_function"]
+        check(nodes.count("busca_tpu_torch.crop_resize.default") == 1,
+              "the exported step does not hold the crop op once")
+        convs = [n for n in art.program.graph.nodes
+                 if str(n.target) == "aten._convolution.default"]
+        check(convs and all(n.args[11] is False for n in convs),
+              "the exported float32 YOLOX convolves through cuDNN")
+        other = "cpu" if det.device.type == "cuda" else "cuda"
+        try:
+            load_artifact(dirs["step"], device=other)
+            check(False, f"an artifact exported on {det.device.type} "
+                  f"loaded on {other}")
+        except ValueError as e:
+            print(f"artifacts: loading it on {other} is refused: {e}")
+
+        frame = torch.from_numpy(frames[0]).to(det.device)
+        with torch.no_grad():
+            launches = crop_resize_cuda.launches
+            got = art.call(frame)
+            check(crop_resize_cuda.launches == launches + 1,
+                  "the program did not launch K1 once")
+            want = live_step(det, frame)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("rows", "valid", "converged", "canvas",
+                               "pred"), got, want):
+            check(g.shape == w.shape and g.dtype == w.dtype
+                  and bool(torch.equal(g, w)),
+                  f"the artifact's {name} differ from the live step's")
+        print(f"artifacts: the program's {len(convs)} convolutions are "
+              f"aten._convolution with cuDNN off; its rows, valid, "
+              f"converged, canvas and decoded rows equal the live step's "
+              f"bit for bit")
+
+        live = yolox_loop(det, engine, frames)
+        adet = ArtifactDetector(art, device=det.device)
+        crop_resize_cuda.launches = 0
+        served = yolox_loop(adet, engine, frames)
+        out["artifact_loop"] = crop_resize_cuda.launches
+        check(loop_replies(served) == loop_replies(live),
+              "the artifact loop differs from the live loop")
+        check(out["artifact_loop"] >= len(frames),
+              "K1 launched under once per frame in the artifact loop")
+        total, det_ms, trk_ms = loop_split(served)
+        ltotal, ldet, ltrk = loop_split(live)
+        print(f"artifacts: {len(frames)} frames of ArtifactDetector through "
+              f"the pipelined loop equal the live loop; {total:.2f} ms/frame "
+              f"(detector {det_ms:.2f}, tracker {trk_ms:.2f}) against "
+              f"{ltotal:.2f} ({ldet:.2f}, {ltrk:.2f}); K1 launches "
+              f"{out['artifact_loop']}")
+
+        def factory():
+            return make_tracker("byte", {
+                "use_busca": True, "track_thresh": YX_TRACK_THRESH,
+                "use_camera_motion_compensation": False}, engine, CROP_HW)
+
+        Track.reset_id_counter()
+        crop_resize_cuda.launches = 0
+        replies, ticks, wall_s, _, _ = serve_lockstep(fam, factory,
+                                                      lockstep["seqs"])
+        out["artifact_lockstep"] = crop_resize_cuda.launches
+        worst = 0.0
+        for i, (got_r, want_r) in enumerate(zip(replies, served_replies)):
+            worst = max(worst, relabelled_gap(
+                f"artifact lockstep stream {i}", reply_rows(got_r),
+                reply_rows(want_r)))
+        check(worst <= LS_BOX_PX, f"the artifact lockstep server is off by "
+              f"{worst} px")
+        n = sum(len(s) for s in lockstep["seqs"])
+        print(f"artifacts: the lockstep server behind ArtifactBatchDetector "
+              f"equals the live lockstep server (ids relabelled, tlwh max "
+              f"|diff| {worst:.3g} px); ticks {ticks}; "
+              f"{wall_s * 1e3 / n:.2f} ms per sequence-frame; K1 launches "
+              f"{out['artifact_lockstep']}")
+
+        with torch.no_grad():
+            launches = crop_resize_cuda.launches
+            live_busy = device_busy_ms(lambda: live_step(det, frame))
+            art_busy = device_busy_ms(lambda: art.call(frame))
+            cfg16 = dataclasses.replace(det.config, dtype="bfloat16")
+            det16 = YoloxDetector(cfg16, state, test_size=det.test_size,
+                                  conf_thresh=det.conf_thresh,
+                                  device=det.device)
+            export_detector_step(det16, FRAME_HW, dirs["bf16"],
+                                 bake_weights=False)
+            art16 = load_artifact(dirs["bf16"], device=det.device)
+            got = art16.call(state, frame)
+            want = live_step(det16, frame)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(g, w)) for g, w in zip(got, want)),
+                  "the bf16 artifact differs from the live bf16 step")
+            times = alternating_ms({
+                "live": lambda: live_step(det, frame),
+                "program": lambda: art.call(frame),
+                "live16": lambda: live_step(det16, frame),
+                "program16": lambda: art16.call(state, frame)})
+            crop_resize_cuda.launches = launches
+
+        def spread(key):
+            t = times[key]
+            return (f"{np.median(t):.2f} ms (rounds {min(t):.2f}-"
+                    f"{max(t):.2f})")
+
+        print(f"artifacts: the step with its letterbox at "
+              f"{FRAME_HW[0]}x{FRAME_HW[1]}, back to back (CUDA events, "
+              f"median of {ART_ROUNDS} alternating rounds): float32 "
+              f"program {spread('program')}, device busy {art_busy:.2f}, "
+              f"against the live step {spread('live')}, busy "
+              f"{live_busy:.2f}; bf16 (unbaked) program "
+              f"{spread('program16')} against {spread('live16')}; the bf16 "
+              f"program's outputs equal the live bf16 step's bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_serving(det, engine, lockstep, served_ms):
+    """Phase 13: the thread cost, the lockstep server and the artifacts
+    (13a-c).  Returns K1's launches on the served and exported paths."""
+    t0 = time.perf_counter()
+    phase_thread_cost(det, engine, yolox_frames(TH_FRAMES))
+    replies, k1 = phase_lockstep_server(det, engine, lockstep, served_ms)
+    out = {"server_lockstep": k1}
+    out.update(phase_artifacts(det, engine, lockstep, replies))
+    print(f"phase 13: {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -3322,11 +3849,13 @@ def main() -> int:
         k1_motdt = phase_alternates(device, crowd)
         print(f"phase 9: {time.perf_counter() - t_phase:.2f} s")
         t_phase = time.perf_counter()
-        k1_served, k2_served = phase_server(device, engine16, yolox, tc32,
-                                            centertrack)
+        k1_served, k2_served, served_ms = phase_server(
+            device, engine16, yolox, tc32, centertrack)
         print(f"phase 10: {time.perf_counter() - t_phase:.2f} s")
-        k1_lockstep = phase_lockstep(device, engine, engine16, yolox)
-        del yolox, tc32, centertrack
+        k1_lockstep, lockstep = phase_lockstep(device, engine, engine16,
+                                               yolox)
+        k1_serving = phase_serving(yolox, engine16, lockstep, served_ms)
+        del yolox, tc32, centertrack, lockstep
         t_phase = time.perf_counter()
         k1_deformable = phase_deformable(device, engine16)
         print(f"phase 11: {time.perf_counter() - t_phase:.2f} s")
@@ -3348,7 +3877,8 @@ def main() -> int:
                               "motdt_loop": k1_motdt,
                               **k1_served,
                               "transcenter_deformable_loop": k1_deformable,
-                              "yolox_lockstep": k1_lockstep}
+                              "yolox_lockstep": k1_lockstep,
+                              **k1_serving}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}
     k2["launches"] += k2_served

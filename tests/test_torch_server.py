@@ -10,8 +10,12 @@ wiring), plus
   small BUSCA engines of tests/test_torch_byte_pipeline.py): ids equal,
   tlwh within the YOLOX loop's 0.1 frame pixels;
 - the frame arrives writable (no copy, no warning on its upload);
-- the CLI: a ``--device cpu`` drive end to end, and its refusal of every
-  flag whose machinery is not ported, naming the ROADMAP item.
+- the CLI: a ``--device cpu`` drive end to end, the servers its
+  ``--detector-artifact``, ``--lockstep``, ``--tick-timeout`` and
+  ``--mem-cap`` build, and its refusal of every flag whose machinery is
+  not ported, naming the ROADMAP item.
+
+The lockstep server has its own file, tests/test_torch_lockstep_server.py.
 """
 
 import socket
@@ -611,10 +615,6 @@ def test_serve_cli_defaults_match_eval():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--detector-artifact", "art/"], "item 20"),
-    (["--lockstep"], "item 21"),
-    (["--mem-cap", "64"], "item 21"),
-    (["--tick-timeout", "0.01"], "item 21"),
     (["--lockstep-dp", "2"], "item 23"),
     (["--reid-stats", "frozen"], "items 7 and 24"),
     (["--reid-stats", "auto"], "items 7 and 24"),
@@ -626,6 +626,42 @@ def test_serve_cli_refuses_unported_flags(argv, item, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP.md Queue 1 {item}" in err
+
+
+def _served(argv, monkeypatch):
+    """The server ``main`` builds from ``argv`` (a tiny YOLOX on the CPU),
+    caught at ``serve_unix``."""
+    from busca_tpu_torch.serve.lockstep import LockstepTrackingServer
+
+    built = []
+    for cls in (TrackingServer, LockstepTrackingServer):
+        monkeypatch.setattr(cls, "serve_unix",
+                            lambda self, *a, **k: built.append(self))
+    server_mod.main(["--socket", "/tmp/x.sock", "--test-h", "64",
+                     "--test-w", "128", "--device", "cpu"] + argv)
+    (server,) = built
+    return server
+
+
+@pytest.mark.parametrize("argv,check", [
+    (["--detector-artifact", "art/"],
+     lambda s: type(s) is TrackingServer and s.detector == "artifact art/"),
+    (["--detector", "yolox-tiny", "--lockstep"],
+     lambda s: type(s).__name__ == "LockstepTrackingServer"
+     and s.tick_timeout == 0.010),
+    (["--detector", "yolox-tiny", "--mem-cap", "64"],
+     lambda s: type(s) is TrackingServer
+     and s.tracker_factory().cfg.mem_cap == 64),
+    (["--detector", "yolox-tiny", "--lockstep", "--tick-timeout", "0.05"],
+     lambda s: s.tick_timeout == 0.05),
+], ids=["detector-artifact", "lockstep", "mem-cap", "tick-timeout"])
+def test_serve_cli_accepts_ported_flags(argv, check, monkeypatch):
+    """The ported flags that test_serve_cli_refuses_unported_flags once
+    refused build their server: an artifact's detector, the lockstep
+    server, its tick timeout, the memory cap on every stream's tracker."""
+    monkeypatch.setattr(server_mod, "load_artifact_detector",
+                        lambda d, device: f"artifact {d}")
+    assert check(_served(argv, monkeypatch))
 
 
 @pytest.mark.parametrize("detector,extra", [
