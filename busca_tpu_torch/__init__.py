@@ -15,6 +15,8 @@ module beside the JAX package it is diffed against:
   HOTA, the runner, the live detector loops, the CLI
 - ``serve``    — the tracking server over a unix socket and tracker
   snapshot/restore
+- ``train``    — training episodes (synthetic and MOT-gt, cropped through
+  K1), the train step with optax's AdamW, the full-loop demo
 - ``config``   — reference-YAML config loading
 
 The package imports torch, numpy and scipy only.  Entry points take a

@@ -9,8 +9,9 @@ periodically, so third-round decisions happen across the whole stream: the
 serving soak (tests/test_torch_serve_soak.py) runs on them.  The same seed
 gives the same detections and frames as busca_tpu's.
 
-``measure_memcap_delta`` and its CLI train the demo model first and wait
-for the training port (ROADMAP.md Queue 1 items 24 and 10).
+``measure_memcap_delta`` and its CLI train the demo model first
+(``train/demo.py``, ported) and run on ``eval/frozen_delta.py``'s helpers,
+which wait for ROADMAP.md Queue 1 item 24.
 """
 
 from __future__ import annotations

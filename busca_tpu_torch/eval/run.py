@@ -32,11 +32,12 @@ Modes:
   StrongSORT, DeepSORT, GHOST and MOTDT take ReID features from a
   ``--reid-ckpt`` extractor run on each detection's crop (without one, a
   distinct placeholder per detection).  MOTChallenge result txts go under
-  ``--output-dir``, optionally linked (``--aflink NPZ``) and smoothed
-  (``--gsi``); per-sequence CLEAR (and ``--hota``) against the gt, and the
-  accumulated CLEAR as JSON.  The per-video BYTE threshold table applies
-  unless ``--ignore-custom-byte-thresholds``.  Frames are decoded with cv2,
-  so this mode runs where cv2 is installed.
+  ``--output-dir``, optionally linked (``--aflink NPZ``, or ``--aflink
+  synthetic``: a link model trained on synthetic trajectories first) and
+  smoothed (``--gsi``); per-sequence CLEAR (and ``--hota``) against the
+  gt, and the accumulated CLEAR as JSON.  The per-video BYTE threshold
+  table applies unless ``--ignore-custom-byte-thresholds``.  Frames are
+  decoded with cv2, so this mode runs where cv2 is installed.
 
 Example::
 
@@ -804,7 +805,9 @@ def main(argv=None):
                              "trajectories")
     parser.add_argument("--aflink", default=None, metavar="NPZ",
                         help="appearance-free tracklet linking with the link "
-                             "model of a busca_tpu AFLink params .npz")
+                             "model of a busca_tpu AFLink params .npz, or "
+                             "'synthetic' to train one on synthetic "
+                             "trajectories first")
     for flag in LATER_FLAGS:
         parser.add_argument("--" + flag.replace("_", "-"), default=None,
                             nargs="?", const=True)
@@ -814,10 +817,6 @@ def main(argv=None):
         if getattr(args, flag):
             parser.error(f"--{flag.replace('_', '-')} is not ported yet "
                          f"(ROADMAP.md Queue 1 item {item})")
-    if args.aflink == "synthetic":
-        parser.error("--aflink synthetic trains the link model first, not "
-                     "ported yet (ROADMAP.md Queue 1 item 10); pass a "
-                     "params .npz")
     if args.detector == "centertrack" and args.tracker != "centertrack":
         parser.error("--detector centertrack needs --tracker centertrack "
                      "(dict IO)")
@@ -895,7 +894,13 @@ def main(argv=None):
 
             feature_extractor = ReidFeatureExtractor.from_checkpoint(
                 args.reid_ckpt, crop_hw=args.crop_hw, device=args.device)
-        if args.aflink:
+        if args.aflink == "synthetic":
+            from busca_tpu_torch.models.aflink import train_aflink_synthetic
+
+            link_model, acc = train_aflink_synthetic(steps=200,
+                                                     device=args.device)
+            print(f"aflink: synthetic-trained link model (acc {acc:.2f})")
+        elif args.aflink:
             link_model = load_aflink(args.aflink, args.device)
         run = run_lockstep if args.lockstep else run_mot
         return run(args, detector, engine, tracker_kwargs,

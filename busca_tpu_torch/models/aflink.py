@@ -17,14 +17,21 @@ Module names are the canonical torch layout that busca_tpu's
 ``convert_aflink_state_dict`` reads (``temporal.{i}.conv``,
 ``temporal.{i}.norm``, ``fusion``, ``fc1``, ``fc2``), so such a state dict
 loads directly; :func:`~busca_tpu_torch.models.convert.
-aflink_state_dict_from_flax` carries busca_tpu's flax parameters.  The
-synthetic trainer of busca_tpu is not ported here (ROADMAP.md item 10).
+aflink_state_dict_from_flax` carries busca_tpu's flax parameters.
+
+The upstream weights are a release download the reference does not vendor,
+so, as busca_tpu does, the module trains the link model on synthetic
+continuity data (:func:`train_aflink_synthetic`): same-identity pairs cut
+from continuous noisy trajectories, negatives from different ones, with
+optax's ``adam`` (:class:`~busca_tpu_torch.train.trainer.AdamW` without
+weight decay).  The episodes equal busca_tpu's for the same
+``RandomState``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,3 +132,94 @@ def make_score_fn(model: AFLinkModel
         return F.softmax(logits, dim=-1)[:, 1].cpu().numpy()
 
     return score
+
+
+# ---------------------------------------------------------------------------
+# synthetic training (the upstream weights are not distributable)
+# ---------------------------------------------------------------------------
+
+def _synthetic_pair(rng, config: AFLinkConfig, positive: bool):
+    """One (tail segment, head segment, label) from synthetic trajectories."""
+    n1 = rng.randint(8, SEG_LEN + 1)
+    n2 = rng.randint(8, SEG_LEN + 1)
+    gap = rng.randint(1, 25)
+
+    def traj(x0, y0, vx, vy, f0, n):
+        f = f0 + np.arange(n)
+        x = x0 + vx * np.arange(n) + rng.randn(n) * 2.0
+        y = y0 + vy * np.arange(n) + rng.randn(n) * 2.0
+        w = np.full(n, 40.0)
+        h = np.full(n, 90.0)
+        return np.stack([f, np.zeros(n), x - w / 2, y - h / 2, w, h], axis=1)
+
+    x0, y0 = rng.uniform(100, 900, 2)
+    vx, vy = rng.uniform(-4, 4, 2)
+    t1 = traj(x0, y0, vx, vy, 0, n1)
+    if positive:
+        # continuation of the same motion after the gap
+        t2 = traj(x0 + vx * (n1 + gap), y0 + vy * (n1 + gap), vx, vy,
+                  n1 + gap, n2)
+    else:
+        kind = rng.randint(3)
+        if kind == 0:  # different place
+            bx, by = rng.uniform(100, 900, 2)
+            while abs(bx - (x0 + vx * (n1 + gap))) < 120:
+                bx = rng.uniform(100, 900)
+            t2 = traj(bx, by, *rng.uniform(-4, 4, 2), n1 + gap, n2)
+        elif kind == 1:  # same place, inconsistent motion
+            t2 = traj(x0 + vx * (n1 + gap) + rng.choice([-1, 1]) * 60,
+                      y0 + vy * (n1 + gap) + rng.choice([-1, 1]) * 60,
+                      -vx, -vy, n1 + gap, n2)
+        else:  # overlapping in time (cannot be the same identity)
+            t2 = traj(x0 + 80, y0 + 80, vx, vy, max(n1 - 4, 0), n2)
+    ref = t1[-1, 0] + 1
+    seg1 = normalize_segment(t1, ref, config, tail=True)
+    seg2 = normalize_segment(t2, ref, config, tail=False)
+    return seg1, seg2, int(positive)
+
+
+def synthetic_batch(rng, batch: int, config: AFLinkConfig):
+    """``batch`` pairs, alternating positive and negative: ``(seg1 [B, 30,
+    3], seg2 [B, 30, 3], labels [B] int32)``."""
+    s1, s2, y = [], [], []
+    for i in range(batch):
+        a, b, label = _synthetic_pair(rng, config, positive=i % 2 == 0)
+        s1.append(a)
+        s2.append(b)
+        y.append(label)
+    return np.stack(s1), np.stack(s2), np.asarray(y, np.int32)
+
+
+def train_aflink_synthetic(steps: int = 300, batch: int = 64, seed: int = 0,
+                           config: Optional[AFLinkConfig] = None,
+                           learning_rate: float = 1e-3, device="cuda"):
+    """Train AFLink on synthetic continuity data on ``device``; returns
+    ``(model, final accuracy)``.  Seeded weights (lecun-normal kernels, zero
+    biases, unit norm scales, as flax initializes them) from a
+    ``torch.Generator`` of ``seed``; the batches from
+    ``np.random.RandomState(seed)``."""
+    from busca_tpu_torch.models.busca import seeded_init
+    from busca_tpu_torch.train.trainer import AdamW
+    from busca_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    config = config or AFLinkConfig()
+    rng = np.random.RandomState(seed)
+    synthetic_batch(rng, batch, config)  # busca_tpu initializes on this
+    model = AFLinkModel(config.widths)
+    seeded_init(model, torch.Generator().manual_seed(seed))
+    model.to(device)
+    optimizer = AdamW(model.parameters(), learning_rate, weight_decay=0.0)
+    acc = 0.0
+    for _ in range(steps):
+        s1, s2, y = (torch.as_tensor(a).to(device)
+                     for a in synthetic_batch(rng, batch, config))
+        logits = model(s1, s2)
+        labels = y.long()
+        loss = F.cross_entropy(logits, labels)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    model.eval()
+    return model, float(acc)

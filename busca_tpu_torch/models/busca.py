@@ -14,7 +14,13 @@ encoder; closed-form 3-D positional encodings; the post-LN Transformer; the
 LayerNorm + Linear decoder over the CAN positions.  Module names are the
 reference's (``reid_encoder.model``, ``encoder``, ``transformer_encoder``,
 ``decoder.0/1``), so ``model_busca.pth`` loads with ``load_state_dict``.
-Inference only: no dropout.
+
+Dropout (``dropout_p``) sits where flax puts it: on the Transformer's input
+and at the Transformer's four sites.  It is active only in ``training``
+mode; a new model starts in eval mode, as flax's forward defaults to
+``deterministic=True``.  The keep masks come from the ``generator`` given to
+``forward`` (busca_tpu's ``rngs={"dropout": key}``).  The forward is
+autograd-clean, so the train step (``train/trainer.py``) differentiates it.
 
 ``BuscaConfig.dtype`` ("float32" or "bfloat16"; both CLIs default to
 bfloat16, busca_tpu's production mode) is the ReID's and the Transformer's
@@ -39,6 +45,7 @@ from busca_tpu_torch.models.reid import ReIDResNet
 from busca_tpu_torch.models.transformer import (
     TorchLinear,
     TransformerEncoder,
+    dropout,
     get_activation,
 )
 
@@ -157,10 +164,11 @@ class BuscaModel(nn.Module):
             else None
         self.transformer_encoder = TransformerEncoder(
             cfg.num_layer, d_model, cfg.nhead, cfg.ff_size,
-            get_activation(cfg.activation), dtype,
+            get_activation(cfg.activation), dtype, cfg.dropout_p,
         )
         self.decoder = nn.Sequential(nn.LayerNorm(d_model, eps=1e-5),
                                      TorchLinear(d_model, 1))
+        self.eval()
 
     def init_weights(self, generator: torch.Generator):
         """Seeded random weights (:func:`seeded_init`)."""
@@ -179,6 +187,7 @@ class BuscaModel(nn.Module):
         mem_group: Optional[torch.Tensor] = None,
         can_group: Optional[torch.Tensor] = None,
         num_groups: int = 1,
+        generator: Optional[torch.Generator] = None,
     ):
         """Score candidates for a batch of tracks.
 
@@ -201,6 +210,8 @@ class BuscaModel(nn.Module):
             per (request, memory|candidate) group, so each request's numbers
             equal its own call's.  ``can_group`` defaults to ``mem_group``
             without a gather.
+          generator: the dropout masks' generator, on the model's device
+            (used only in training mode).
 
         Returns:
           logits ``[B, C + extras]`` (and the attention list).
@@ -284,7 +295,9 @@ class BuscaModel(nn.Module):
             cfg.encode_separator_as_reference, cfg.quantize_pe_fp16,
         )
         x = torch.cat([mem_emb + mem_pe, can_seq + can_pe], dim=1)
-        out = self.transformer_encoder(x, return_att=return_att)
+        x = dropout(x, cfg.dropout_p, self.training, generator)
+        out = self.transformer_encoder(x, return_att=return_att,
+                                       generator=generator)
         if return_att:
             out, attentions = out
 

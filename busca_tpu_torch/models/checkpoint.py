@@ -1,15 +1,22 @@
-"""Portable parameter files: flat-key ``.npz`` of a nested parameter tree.
+"""Checkpoints: train-state files, and portable parameter files.
 
-The port's copy of ``save_params_npz`` / ``load_params_npz`` from
-``busca_tpu.models.checkpoint`` (numpy only, no orbax): the keys are the
-tree's path joined with ``/``, so a file written by either package reads in
-the other.
+- ``save_checkpoint`` / ``restore_checkpoint``: the train state
+  ``{"params", "opt_state", "step"}`` (:func:`train_state`: the model's and
+  the optimizer's state dicts) under ``<directory>/step_%08d``, the latest
+  step found by name, as ``busca_tpu.models.checkpoint`` lays out its orbax
+  checkpoints.  The file is the port's own: one ``torch.save``, read back
+  with ``torch.load(..., weights_only=True)`` (tensors, numbers and
+  containers only).
+- ``save_params_npz`` / ``load_params_npz``: the port's copy of busca_tpu's
+  flat-key ``.npz`` of a nested parameter tree (numpy only): the keys are
+  the tree's path joined with ``/``, so a file written by either package
+  reads in the other.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -44,3 +51,38 @@ def save_params_npz(path: str, params: dict):
 def load_params_npz(path: str) -> dict:
     with np.load(path) as data:
         return _unflatten({k: data[k] for k in data.files})
+
+
+def train_state(model, optimizer, step: int) -> dict:
+    """``{"params", "opt_state", "step"}`` of a training run."""
+    return {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+            "step": int(step)}
+
+
+def save_checkpoint(directory: str, state: dict, step: int = 0) -> str:
+    """Write ``state`` to ``<directory>/step_%08d`` (through a temporary
+    file and a rename, so a checkpoint is whole or absent); returns the
+    path."""
+    import torch
+
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.abspath(os.path.join(directory, f"step_{step:08d}"))
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(directory: str, step: Optional[int] = None) -> dict:
+    """Read the given (or the latest) step's checkpoint from ``directory``
+    onto the CPU (``load_state_dict`` copies it to the parameters' device)."""
+    import torch
+
+    if step is None:
+        steps = sorted(int(d.split("_")[1]) for d in os.listdir(directory)
+                       if d.startswith("step_") and not d.endswith(".tmp"))
+        if not steps:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        step = steps[-1]
+    path = os.path.abspath(os.path.join(directory, f"step_{step:08d}"))
+    return torch.load(path, map_location="cpu", weights_only=True)

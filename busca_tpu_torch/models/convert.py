@@ -18,6 +18,8 @@ whose port keeps the flax module names, and
 layout), :func:`aflink_state_dict_from_flax` for the AFLink link model, and
 :func:`centertrack_state_dict_from_flax` for CenterTrack (the inverse of
 ``convert_centertrack_state_dict``: the published DLASeg key layout).
+:func:`adamw_state_dict_from_optax` carries a BUSCA run's optax AdamW
+state into the port's optimizer, so a JAX run continues in the port.
 """
 
 from __future__ import annotations
@@ -111,6 +113,30 @@ def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     """BuscaModel flax variables (``{'params': ..., 'batch_stats': ...}``)
     -> the port's (= the reference's) torch state dict."""
     return _convert(variables, _busca_key)
+
+
+def adamw_state_dict_from_optax(count, mu: dict, nu: dict,
+                                model: torch.nn.Module,
+                                optimizer: torch.optim.Optimizer) -> dict:
+    """optax ``adamw`` state of a BUSCA run (its ``ScaleByAdamState``:
+    ``count`` and the ``mu``/``nu`` trees of flax parameter paths, as
+    numpy) -> a state dict for ``optimizer``
+    (:class:`~busca_tpu_torch.train.trainer.AdamW` over ``model``'s
+    parameters), keyed through :func:`state_dict_from_flax`'s mapping; load
+    it with ``optimizer.load_state_dict``.  With a schedule, optax's
+    ``ScaleByScheduleState`` count equals ``count``."""
+    moments = {name: state_dict_from_flax({"params": tree})
+               for name, tree in (("mu", mu), ("nu", nu))}
+    index = {id(p): n for n, p in model.named_parameters()}
+    sd = optimizer.state_dict()
+    state = {}
+    for group, saved in zip(optimizer.param_groups, sd["param_groups"]):
+        saved["count"] = int(count)
+        for p, i in zip(group["params"], saved["params"]):
+            name = index[id(p)]
+            state[i] = {k: moments[k][name] for k in ("mu", "nu")}
+    sd["state"] = state
+    return sd
 
 
 def resnet_state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:

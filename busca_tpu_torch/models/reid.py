@@ -49,6 +49,11 @@ class BatchNorm(nn.Module):
 
     With ``use_batch_stats=False`` the stored running statistics are used
     (torch eval mode).  Works on ``[N, C, ...]`` activations.
+
+    Training differentiates through the statistics as busca_tpu's does: the
+    variance is E[x^2] - E[x]^2 clamped at 0 (``jnp.maximum(var, 0.0)``),
+    so the gradients match JAX's.  Nothing updates the running statistics:
+    busca_tpu's train step applies ``{"params": ...}`` only.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,

@@ -137,7 +137,27 @@ Phases (each failure exits non-zero before the result line):
    and the lockstep server behind ``ArtifactBatchDetector`` equals (b);
    export and load seconds, bytes, the program's time against the live
    step's; K1's launches on the served and exported paths;
-14. the ``kernels`` JSON line, then the result line
+14. training: (a) ``MotEpisodeSampler`` cuts ``EpisodeSpec()`` batches (8
+   episodes, 11 memory crops and 5 candidates at 384x128) from phase 8's
+   crowd, its gt written to a temp dir and its rendered frames handed to
+   the sampler, one K1 launch per sequence frame of a batch; the
+   full-width ``BuscaConfig()`` (ResNet-50, d=512, 4 layers, dropout 0.1)
+   takes 10 float32 steps (TF32 off) with ``make_optimizer()`` (optax's
+   AdamW, clip 1.0): every loss and gradient finite; the step's time
+   (CUDA events), device busy and idle share, peak allocated memory and
+   share of the float32 peak; the loss falls over 5 steps on one batch and
+   mask; one bf16 step's loss against the float32 step's on the same
+   batch, weights and mask; (b) one step at the small config (2 layers,
+   ReID stages (1, 1, 1, 1), 64x32, dropout 0) on the card against the
+   CPU from the same weights and batch: loss, every gradient, the updated
+   parameters; (c) a full-width run saved after 2 steps and restored on a
+   fresh model and optimizer, 2 steps on beside the unbroken run with
+   cuDNN's deterministic algorithms: bit for bit; (d)
+   ``train_demo_model`` + ``run_trained_rescue`` (accuracy > 0.6, base
+   MOTA > 0.6, BUSCA MOTA >= base, no identity switch; K1 counted) and
+   ``train_aflink_synthetic(steps=150, batch=64)`` (accuracy > 0.8, the
+   linker merges a split trajectory), with their seconds;
+15. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -296,6 +316,33 @@ ART_ROUNDS = 5
 # a stream hold lasts three times the host time it covers, and at least
 # this long: a busy host's enqueue must not outrun it
 HOLD_MIN_S = 0.25
+# Phase 14: training.  The full-width BuscaConfig() (dropout 0.1) in float32
+# (TF32 off) on EpisodeSpec() batches (8 episodes of 11 memory crops and 5
+# candidates at 384x128) that MotEpisodeSampler cuts from phase 8's crowd
+# through K1: TR_STEPS steps, then TR_REPEAT steps on one batch with one
+# dropout mask (its loss must fall), then one bf16 step from the same
+# weights, whose loss must lie within TR_BF16_LOSS_TOL of the float32 step's
+# (a decade above the CPU's largest gap at the small config, 0.011 over
+# three seeds).  Card against the CPU at TR_SMALL (dropout 0): the
+# loss within 1e-5 relative; each gradient within the larger of TR_GRAD_RTOL
+# of its largest element plus TR_GRAD_ATOL (tests/test_torch_trainer.py's
+# bound against busca_tpu) and twice the CPU's own float32 spread over
+# TR_PERTURBATIONS + 1 equally valid evaluations (cpu_gradient_spread); the
+# card's updated parameters against the CPU's AdamW run on the card's
+# gradients, within 1e-6 relative plus 1e-3 lr; and the card's gradients
+# with TF32 on must break that gradient bound.  Resume after
+# TR_RESUME_K steps, compared over two more.
+TR_STEPS = 10
+TR_REPEAT = 5
+TR_SEED = 14
+TR_BF16_LOSS_TOL = 0.1
+TR_SMALL = dict(num_layer=2, reid_num_classes=7, reid_layers=(1, 1, 1, 1),
+                dropout_p=0.0)
+TR_SMALL_SPEC = dict(batch=4, seq_len=3, num_candidates=2, crop_hw=(64, 32))
+TR_GRAD_RTOL, TR_GRAD_ATOL = 2e-4, 1e-6
+TR_PERTURBATIONS = 4
+TR_RESUME_K = 2
+FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 
 
 class PhaseError(RuntimeError):
@@ -381,7 +428,10 @@ def device_kernels_ms(fn, reps=3, warmup=True):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range (the optimizer's step) is mirrored on the
+        # device's timeline as an annotation, not a kernel
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
     return by_name
@@ -414,17 +464,21 @@ def smoke_boxes(rng, n, h, w):
     return boxes
 
 
-def phase_card():
-    import torch
-
+def card_name_and_limit():
+    """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         "nvidia-smi unavailable"
-    print(card)  # as nvidia-smi prints it: name, power limit
+
+
+def phase_card():
+    import torch
+
+    print(card_name_and_limit())  # as nvidia-smi prints it
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     from concurrent.futures import ThreadPoolExecutor
@@ -3800,6 +3854,478 @@ def phase_serving(det, engine, lockstep, served_ms):
     return out
 
 
+def write_mot_gt(directory, gt, frame_hw, n_frames):
+    """A MOT sequence directory holding ``seqinfo.ini`` and ``gt/gt.txt``
+    of ``gt`` ({frame: (tlwh, ids)}), without frames: the sampler is handed
+    the rendered ones (the card host has no cv2 to decode JPEGs)."""
+    os.makedirs(os.path.join(directory, "gt"), exist_ok=True)
+    rows = [f"{f},{int(i)},{x:.2f},{y:.2f},{w:.2f},{h:.2f},1,1,1.0"
+            for f in sorted(gt) for (x, y, w, h), i in zip(*gt[f])]
+    with open(os.path.join(directory, "gt", "gt.txt"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    with open(os.path.join(directory, "seqinfo.ini"), "w") as fh:
+        fh.write(f"[Sequence]\nname=crowd\nimDir=img1\nframeRate=30\n"
+                 f"seqLength={n_frames}\nimWidth={frame_hw[1]}\n"
+                 f"imHeight={frame_hw[0]}\nimExt=.jpg\n")
+
+
+def train_flops(model, batch):
+    """float32 operations of one training step: three times the forward's
+    (the backward computes two products per forward product), the forward
+    being the ReID's convolutions and linears on the batch's crops
+    (:func:`reid_flops`), the encoder linear and the Transformer's
+    products."""
+    import torch
+
+    cfg = model.config
+    b, l = batch["mem_boxes"].shape[:2]
+    c = batch["can_boxes"].shape[1]
+    dev = next(model.parameters()).device
+    crops = torch.cat([torch.as_tensor(batch["mem_crops"]).flatten(0, 1),
+                       torch.as_tensor(batch["can_crops"]).flatten(0, 1)])
+    fwd = reid_flops(model.reid_encoder.model, crops.to(dev))
+    d, ff = cfg.trans_dim, cfg.ff_size
+    s = l + 2 * (c + cfg.num_extra_candidates)  # tokens per episode
+    fwd += 2 * b * (l + c) * cfg.dim_embedding * d
+    fwd += cfg.num_layer * b * (2 * s * d * 3 * d + 2 * 2 * s * s * d
+                                + 2 * s * d * d + 2 * 2 * s * d * ff)
+    fwd += b * (c + cfg.num_extra_candidates) * 2 * d
+    return 3 * fwd
+
+
+def timed_train_step(step, batch, generator):
+    """One train step timed with CUDA events: (metrics, ms)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = step(batch, generator)
+    end.record()
+    torch.cuda.synchronize()
+    return metrics, start.elapsed_time(end)
+
+
+def check_gradients_finite(model, label):
+    import torch
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    check(len(grads) > 0, f"{label}: no gradients")
+    peak = torch.stack([g.abs().amax() for g in grads])
+    check(bool(torch.isfinite(peak).all()), f"{label}: a gradient is not "
+          "finite")
+
+
+def train_episodes(device, crowd):
+    """Phase 14's batches: MotEpisodeSampler over phase 8's crowd, its
+    crops through K1.  Returns (sampler, batches, K1's launches)."""
+    import tempfile
+
+    import numpy as np
+
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.train.data import EpisodeSpec, MotEpisodeSampler
+
+    _, frames, _, gt = crowd
+    spec = EpisodeSpec()
+    with tempfile.TemporaryDirectory(prefix="busca_train_") as tmp:
+        seq_dir = os.path.join(tmp, "crowd")
+        write_mot_gt(seq_dir, gt, FRAME_HW, len(frames))
+        sampler = MotEpisodeSampler([seq_dir], spec, device=device)
+    sampler._frame = lambda si, f: frames[f - 1]
+    rng = np.random.RandomState(TR_SEED)
+    crop_resize_cuda.launches = 0
+    batches, ms = [], []
+    for _ in range(TR_STEPS):
+        t0 = time.perf_counter()
+        batches.append(sampler.batch(rng))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    k1 = crop_resize_cuda.launches
+    boxes = spec.batch * (spec.seq_len + spec.num_candidates)
+    print(f"train episodes: EpisodeSpec() batch {spec.batch}, seq_len "
+          f"{spec.seq_len}, {spec.num_candidates} candidates, "
+          f"{spec.crop_hw[0]}x{spec.crop_hw[1]} crops from the crowd "
+          f"({len(sampler.seqs[0][2])} usable tracks); sampler "
+          f"{float(np.median(ms)):.2f} ms per batch (median of "
+          f"{TR_STEPS}; first {ms[0]:.2f}); K1 launches {k1} over "
+          f"{TR_STEPS} batches, {k1 / TR_STEPS:.1f} per batch for up to "
+          f"{boxes} boxes (one per sequence frame)")
+    check(k1 > 0, "the episode sampler never launched K1")
+    for b in batches:
+        check(all(np.isfinite(v).all() for v in b.values()),
+              "an episode batch is not finite")
+    return sampler, batches, k1
+
+
+def phase_train_full_width(device, batches):
+    """14a: the full-width float32 step, its loss falling on a repeated
+    batch, and one bf16 step from the same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.models.busca import BuscaConfig, BuscaModel
+    from busca_tpu_torch.train.trainer import (
+        make_optimizer,
+        make_train_step,
+        step_generator,
+    )
+
+    cfg = BuscaConfig()
+    model = BuscaModel(cfg).to(device)
+    model.init_weights(torch.Generator().manual_seed(TR_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(model, make_optimizer(model.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        m, ms = timed_train_step(step, b, step_generator(TR_SEED, i, device))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+        check(np.isfinite(losses[-1]), f"train step {i}: loss not finite")
+        check_gradients_finite(model, f"train step {i}")
+    peak = torch.cuda.max_memory_allocated()
+    ms = float(np.median(step_ms[1:]))
+    flops = train_flops(model, batches[0])
+    print(f"train step on {card_name_and_limit()} (BuscaConfig(): "
+          f"ResNet-50, d={cfg.trans_dim}, "
+          f"{cfg.num_layer} layers, dropout {cfg.dropout_p}; "
+          f"{n_params} parameters; float32): {ms:.2f} ms (CUDA events, "
+          f"median of steps 2-{len(batches)}; the first {step_ms[0]:.2f}); "
+          f"peak allocated {peak / 2**30:.2f} GiB; {flops / 1e12:.3f} "
+          f"TFLOP per step, {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+          f"{100 * flops / (ms * 1e-3) / FP32_PEAK_FLOPS:.1f}% of the "
+          f"float32 peak; losses {[round(x, 4) for x in losses]}")
+    by_kind = profile_step(
+        lambda: step(batches[0], step_generator(TR_SEED, 99, device)), ms,
+        reps=2, label="train step (float32)", top=5)
+    busy = sum(by_kind.values())
+    if busy:
+        print(f"train step: device busy {busy:.2f} ms of {ms:.2f}, idle "
+              f"{100 * (1 - busy / ms):.1f}%")
+
+    rep = [float(step(batches[0], step_generator(TR_SEED, 1000,
+                                                 device))["loss"])
+           for _ in range(TR_REPEAT)]
+    print(f"train step: one batch and mask {TR_REPEAT} times, losses "
+          f"{[round(x, 4) for x in rep]}")
+    check(all(np.isfinite(rep)) and rep[-1] < rep[0],
+          "the loss did not fall on a repeated batch")
+
+    model16 = BuscaModel(dataclasses.replace(cfg, dtype="bfloat16"))
+    model16.load_state_dict(model.state_dict())
+    model16.to(device)
+    step16 = make_train_step(model16, make_optimizer(model16.parameters()))
+    m16, ms16 = timed_train_step(step16, batches[1],
+                                 step_generator(TR_SEED, 2000, device))
+    m32, _ = timed_train_step(step, batches[1],
+                              step_generator(TR_SEED, 2000, device))
+    l16, l32 = float(m16["loss"]), float(m32["loss"])
+    check_gradients_finite(model16, "bf16 train step")
+    print(f"train step bf16: loss {l16:.5f} against float32 {l32:.5f} on "
+          f"the same batch, weights and mask, |gap| {abs(l16 - l32):.5f} "
+          f"(bound {TR_BF16_LOSS_TOL}); first call {ms16:.2f} ms")
+    check(np.isfinite(l16), "the bf16 train step's loss is not finite")
+    check(abs(l16 - l32) <= TR_BF16_LOSS_TOL,
+          f"bf16 train loss {l16} vs float32 {l32}")
+    return {"step_ms": ms, "peak_bytes": peak, "flops": flops,
+            "busy_ms": busy}
+
+
+def cpu_gradient_spread(cfg, state, batch, grads):
+    """Per parameter, the most the CPU's own float32 gradients of one step
+    move under evaluations that are as valid: the crops changed by 1e-7
+    relative (TR_PERTURBATIONS seeds) and oneDNN off.  At the small config
+    some ReLU and max decisions tie to float32's last bits, and each such
+    evaluation flips a few (a 1e-7 change of the crops flips the same one
+    as float64-accurate convolutions), moving a layer's gradient by two
+    orders of magnitude more than the base bound (phase 14b prints the
+    largest ratio)."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.models.busca import BuscaModel
+    from busca_tpu_torch.train.trainer import loss_fn
+
+    model = BuscaModel(cfg)
+    model.load_state_dict(state)
+    model.train()
+
+    def grads_of(b):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, b).backward()
+        return {n: p.grad.detach().clone() for n, p in
+                model.named_parameters() if p.grad is not None}
+
+    variants = []
+    for seed in range(TR_PERTURBATIONS):
+        rng = np.random.RandomState(seed)
+        b = dict(batch)
+        for k in ("mem_crops", "can_crops"):
+            b[k] = (batch[k] * (1 + 1e-7 * rng.standard_normal(
+                batch[k].shape))).astype(np.float32)
+        variants.append(grads_of(b))
+    with torch.backends.mkldnn.flags(enabled=False):
+        variants.append(grads_of(batch))
+    return {n: max((v[n] - g).abs().max().item() for v in variants)
+            for n, g in grads.items()}
+
+
+def phase_train_card_vs_cpu(device):
+    """14b: one step at the small config on the card and on the CPU from
+    the same weights and batch, dropout 0: the loss; each gradient within
+    the larger of the base bound and twice the CPU's own float32 spread
+    (:func:`cpu_gradient_spread`); the card's updated parameters against
+    the CPU's optimizer run on the card's gradients.  The gradients once
+    more with TF32 on (the card's default, which ``set_card_precision``
+    turns off) must exceed that bound: the widened bound still catches a
+    product at the wrong precision."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.models.busca import BuscaConfig, BuscaModel
+    from busca_tpu_torch.train.data import EpisodeSpec, synthetic_batch
+    from busca_tpu_torch.train.trainer import (
+        loss_fn,
+        make_optimizer,
+        make_train_step,
+    )
+    from busca_tpu_torch.utils.device import set_card_precision
+
+    cfg = BuscaConfig(**TR_SMALL)
+    cpu = BuscaModel(cfg).init_weights(torch.Generator().manual_seed(
+        TR_SEED))
+    state = {k: v.clone() for k, v in cpu.state_dict().items()}
+    card = BuscaModel(cfg)
+    card.load_state_dict(state)
+    card.to(device)
+    batch = synthetic_batch(np.random.RandomState(TR_SEED),
+                            EpisodeSpec(**TR_SMALL_SPEC))
+    mc = make_train_step(cpu, make_optimizer(cpu.parameters()))(batch)
+    mg = make_train_step(card, make_optimizer(card.parameters()))(batch)
+    grads = {n: p.grad.detach().clone() for n, p in cpu.named_parameters()
+             if p.grad is not None}
+    spread = cpu_gradient_spread(cfg, state, batch, grads)
+
+    def gap_ratios(model):
+        out = {}
+        for n, p in model.named_parameters():
+            if n not in grads:
+                check(p.grad is None, f"card vs CPU: {n} has a gradient on "
+                      "the card only")
+                continue
+            base = TR_GRAD_RTOL * grads[n].abs().max().item() + TR_GRAD_ATOL
+            out[n] = ((p.grad.cpu() - grads[n]).abs().max().item()
+                      / max(base, 2 * spread[n]), spread[n] / base)
+        return out
+
+    ratio = gap_ratios(card)
+    tf32_card = BuscaModel(cfg)
+    tf32_card.load_state_dict(state)
+    tf32_card.to(device)
+    tf32_card.train()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        loss_fn(tf32_card, batch).backward()
+        torch.cuda.synchronize()
+    finally:
+        set_card_precision()
+    tf32_ratio = gap_ratios(tf32_card)
+    # the card's AdamW update against the CPU's on the card's gradients
+    ref = BuscaModel(cfg)
+    ref.load_state_dict(state)
+    for (n, pr), pg in zip(ref.named_parameters(), card.parameters()):
+        pr.grad = None if pg.grad is None else pg.grad.cpu()
+    opt = make_optimizer(ref.parameters())
+    opt.step()
+    lr = opt.param_groups[0]["lr"]
+    update_gap = max(((pg.detach().cpu() - pr.detach()).abs()
+                      / (1e-6 * pr.detach().abs() + 1e-3 * lr)).max().item()
+                     for pr, pg in zip(ref.parameters(), card.parameters()))
+    loss_gap = abs(float(mg["loss"]) - float(mc["loss"])) / abs(
+        float(mc["loss"]))
+    grad_worst = max(r for r, _ in ratio.values())
+    for n in sorted(ratio, key=lambda k: -ratio[k][0])[:3]:
+        print(f"train step card vs CPU: {n}: gradient gap "
+              f"{ratio[n][0]:.3f} of its bound (the CPU's own spread "
+              f"{ratio[n][1]:.2f} of the base bound)")
+    print(f"train step card vs CPU ({TR_SMALL}, "
+          f"{TR_SMALL_SPEC['crop_hw']} crops, batch "
+          f"{TR_SMALL_SPEC['batch']}): loss {float(mg['loss']):.6f} vs "
+          f"{float(mc['loss']):.6f} (relative {loss_gap:.2e}, bound 1e-5); "
+          f"worst gradient gap {grad_worst:.3f} of its bound ("
+          f"{sum(r > 1 for _, r in ratio.values())} of {len(ratio)} "
+          f"parameters' CPU spread above the base bound, the largest "
+          f"{max(r for _, r in ratio.values()):.1f} times it); the card's "
+          f"update "
+          f"against the CPU optimizer on its gradients {update_gap:.3f} of "
+          f"1e-6 relative + 1e-3 lr")
+    check(loss_gap <= 1e-5, "train loss card vs CPU")
+    check(float(mg["accuracy"]) == float(mc["accuracy"]),
+          "train accuracy card vs CPU")
+    tf32_worst = max(tf32_ratio, key=lambda k: tf32_ratio[k][0])
+    print(f"train step card vs CPU with TF32 on: worst gradient gap "
+          f"{tf32_ratio[tf32_worst][0]:.3f} of its bound ({tf32_worst}; "
+          f"{sum(r > 1 for r, _ in tf32_ratio.values())} of "
+          f"{len(tf32_ratio)} parameters above their bound)")
+    check(grad_worst <= 1.0, "gradients card vs CPU")
+    check(update_gap <= 1.0, "the card's AdamW update")
+    check(tf32_ratio[tf32_worst][0] > 1.0,
+          "TF32's gradients are within the card-vs-CPU bound")
+
+
+def phase_train_resume(device, batches):
+    """14c: save after TR_RESUME_K full-width steps, restore on a fresh
+    model and optimizer, and step on beside the unbroken run, with cuDNN's
+    deterministic algorithms (its default backward-weight algorithms are
+    not bit-reproducible)."""
+    import tempfile
+
+    import torch
+
+    from busca_tpu_torch.models.busca import BuscaConfig, BuscaModel
+    from busca_tpu_torch.models.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        train_state,
+    )
+    from busca_tpu_torch.train.trainer import (
+        make_optimizer,
+        make_train_step,
+        step_generator,
+    )
+
+    def fresh(seed):
+        model = BuscaModel(BuscaConfig()).to(device)
+        model.init_weights(torch.Generator().manual_seed(seed))
+        opt = make_optimizer(model.parameters())
+        return model, opt, make_train_step(model, opt)
+
+    def run(step, first, n):
+        return [float(step(batches[i], step_generator(TR_SEED, i,
+                                                      device))["loss"])
+                for i in range(first, first + n)]
+
+    k = TR_RESUME_K
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ma, oa, sa = fresh(TR_SEED)
+        run(sa, 0, k)
+        with tempfile.TemporaryDirectory(prefix="busca_ckpt_") as ck:
+            t0 = time.perf_counter()
+            path = save_checkpoint(ck, train_state(ma, oa, k), k)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            unbroken = run(sa, k, 2)
+            mb, ob, sb = fresh(TR_SEED + 1)
+            t0 = time.perf_counter()
+            state = restore_checkpoint(ck)
+            mb.load_state_dict(state["params"])
+            ob.load_state_dict(state["opt_state"])
+            load_s = time.perf_counter() - t0
+        resumed = run(sb, state["step"], 2)
+        gaps = [(a - b).abs().max().item() for a, b in
+                zip(ma.state_dict().values(), mb.state_dict().values())
+                if a.is_floating_point()]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    print(f"train resume (full width, cuDNN deterministic): checkpoint "
+          f"{size} bytes, saved in {save_s:.2f} s, restored in "
+          f"{load_s:.2f} s; losses after step {k}: unbroken {unbroken}, "
+          f"resumed {resumed}; parameters' max |diff| {max(gaps):.3e}")
+    check(resumed == unbroken and max(gaps) == 0.0,
+          "the resumed run differs from the unbroken one")
+
+
+def aflink_split_rows():
+    """tests/test_aflink.py:65-88's rows: identity A split into ids 1 and 2
+    by a 6-frame gap, identity B far away and overlapping in time."""
+    import numpy as np
+
+    rows = [[f, 1, 100 + 3.0 * f, 50 + 1.0 * f, 40, 90, 1, -1, -1, -1]
+            for f in range(1, 21)]
+    rows += [[f, 2, 100 + 3.0 * f, 50 + 1.0 * f, 40, 90, 1, -1, -1, -1]
+             for f in range(27, 46)]
+    rows += [[f, 7, 900 - 2.0 * f, 700, 40, 90, 1, -1, -1, -1]
+             for f in range(1, 46)]
+    return np.asarray(rows, np.float64)
+
+
+def phase_train_demo(device):
+    """14d: the trained-rescue demo and AFLink's synthetic training on the
+    card, held to busca_tpu's bars.  Returns K1's launches on the rescue
+    run."""
+    import numpy as np
+
+    from busca_tpu_torch.models.aflink import train_aflink_synthetic
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers.postprocess import aflink
+    from busca_tpu_torch.train.demo import (
+        run_trained_rescue,
+        train_demo_model,
+    )
+
+    t0 = time.perf_counter()
+    cfg, model, metrics = train_demo_model(device=device)
+    train_s = time.perf_counter() - t0
+    crop_resize_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = run_trained_rescue(cfg, model)
+    rescue_s = time.perf_counter() - t0
+    k1 = crop_resize_cuda.launches
+    summary = {tag: {k: round(v, 4) if isinstance(v, float) else v
+                     for k, v in m.items() if k != "results"}
+               for tag, m in out.items()}
+    print(f"trained rescue: train_demo_model {train_s:.2f} s (accuracy "
+          f"{metrics['accuracy']:.3f}, loss {metrics['loss']:.4f}), "
+          f"run_trained_rescue {rescue_s:.2f} s, K1 launches {k1}: "
+          f"{summary}")
+    check(metrics["accuracy"] > 0.6, "the demo model did not learn")
+    check(out["base"]["mota"] > 0.6, "the base tracker's MOTA")
+    check(out["busca"]["mota"] >= out["base"]["mota"] - 1e-9,
+          "the trained engine hurt the tracker")
+    check(out["busca"]["ids"] == 0, "identity switches with BUSCA")
+    check(k1 > 0, "the rescue run never launched K1")
+
+    t0 = time.perf_counter()
+    link, acc = train_aflink_synthetic(steps=150, batch=64, device=device)
+    link_s = time.perf_counter() - t0
+    linked = aflink(aflink_split_rows(), model=link)
+    tail = np.unique(linked[(linked[:, 0] >= 27) & (linked[:, 2] < 500), 1])
+    ids = np.unique(linked[:, 1])
+    print(f"AFLink synthetic training: 150 steps of 64 in {link_s:.2f} s, "
+          f"accuracy {acc:.3f}; linked ids {ids.tolist()}")
+    check(acc > 0.8, f"AFLink's synthetic training: accuracy {acc}")
+    check(tail.tolist() == [1.0] and 7.0 in ids and 2.0 not in ids,
+          "the trained linker did not merge the split trajectory")
+    return k1
+
+
+def phase_training(device, crowd):
+    """Phase 14: training (a-d).  Returns K1's launches on the episode
+    sampler's and the rescue demo's paths."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _, batches, k1_train = train_episodes(device, crowd)
+    phase_train_full_width(device, batches)
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu(device)
+    phase_train_resume(device, batches)
+    torch.cuda.empty_cache()
+    k1_rescue = phase_train_demo(device)
+    print(f"phase 14: {time.perf_counter() - t0:.2f} s")
+    return {"train_episodes": k1_train, "trained_rescue": k1_rescue}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3859,6 +4385,8 @@ def main() -> int:
         t_phase = time.perf_counter()
         k1_deformable = phase_deformable(device, engine16)
         print(f"phase 11: {time.perf_counter() - t_phase:.2f} s")
+        del engine, engine16
+        k1_training = phase_training(device, crowd)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3878,7 +4406,8 @@ def main() -> int:
                               **k1_served,
                               "transcenter_deformable_loop": k1_deformable,
                               "yolox_lockstep": k1_lockstep,
-                              **k1_serving}
+                              **k1_serving,
+                              **k1_training}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}
     k2["launches"] += k2_served

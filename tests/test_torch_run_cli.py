@@ -181,13 +181,6 @@ def test_global_metrics_equal_accumulate():
         assert got[k] == pytest.approx(want[k], rel=1e-12), k
 
 
-def test_aflink_synthetic_refused(mot_fixture, capsys):  # noqa: F811
-    with pytest.raises(SystemExit):
-        trun.main(["--mot-dir", mot_fixture, "--aflink", "synthetic",
-                   "--device", "cpu"])
-    assert "item 10" in capsys.readouterr().err
-
-
 def test_evaluate_sequences_parallel_matches_serial_and_jax():
     """Per-sequence CLEAR over a spawn pool equals the serial pass and
     busca_tpu's, on seeded scenes of tests/test_metrics_fuzz.py."""
