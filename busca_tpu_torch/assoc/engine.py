@@ -28,13 +28,20 @@ the ReID casts them at its entry (busca_tpu/models/reid.py:225).
 requests (one per lockstep sequence) in one model call, with BN statistics
 per request, so each request's numbers equal its own :meth:`associate`.
 
-Batch mode only: ``reid_stats='frozen'|'auto'`` (and with it the frozen
-branch of ``associate_many``) and the debug montage are not ported yet
-(ROADMAP.md Queue 1, items 7 and 24).
+``reid_stats='frozen'`` is the opt-in serving deviation of busca_tpu
+(PARITY.md "Frozen-stats ReID"): BN normalizes with the stored running
+statistics, so a crop's feature does not depend on its batch and is cached
+across frames by crop uid, in a ``[cap, F]`` float32 feature bank on the
+engine's device (``feat_bank=True``) or on the host.  A third round then
+encodes only the frame's new crops.  ``'auto'`` has the same numbers and
+scores calls of at most ``auto_fused_max_t`` tracks in one fused forward.
+The debug montage is not ported yet (ROADMAP.md Queue 1, item 25).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,9 +55,16 @@ from busca_tpu_torch.models.busca import (
     BuscaConfig,
     BuscaModel,
 )
+from busca_tpu_torch.models.reid import BatchNorm
 from busca_tpu_torch.utils.padding import next_pow2
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+# reid_stats='auto': at or below this per-call track count one fused forward
+# scores the call; above it, the cached path (encode the new crops, then
+# score from features).  busca_tpu's constant (busca_tpu/assoc/engine.py:57),
+# chosen there on a TPU; chip_smoke.py phase 15 measures the card's own
+# crossover.  Frozen BN numerics either way.
+AUTO_FUSED_MAX_T = 1
 INCOMPLETE_MEM_BBOX_TLWH = np.array([250.0, 250.0, 500.0, 500.0])
 _NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, {}): {}"
 
@@ -116,11 +130,33 @@ class AssociationEngine:
         dedup_candidates: bool = True,
         bank=None,
         reid_stats: str = "batch",
+        feat_cache_slots: int = 16384,
+        feat_bank: bool = True,
+        auto_fused_max_t: int = AUTO_FUSED_MAX_T,
     ):
-        if reid_stats != "batch":
-            raise NotImplementedError(
-                _NOT_PORTED.format("items 7 and 24",
-                                   f"reid_stats={reid_stats!r}"))
+        if reid_stats not in ("batch", "frozen", "auto"):
+            raise ValueError(f"reid_stats must be 'batch', 'frozen' or "
+                             f"'auto', got {reid_stats!r}")
+        frozen = reid_stats in ("frozen", "auto")
+        if frozen:
+            # busca_tpu refuses variables without 'batch_stats' and rebuilds
+            # its model with reid_use_batch_stats=False; the port takes the
+            # built module and never flips the BN mode of a module another
+            # engine may share, so it refuses a batch-statistics ReID
+            if any(m.use_batch_stats for m in model.modules()
+                   if isinstance(m, BatchNorm)):
+                raise ValueError(
+                    f"reid_stats={reid_stats!r} needs a model whose "
+                    "BatchNorm uses its running statistics (batch_stats): "
+                    "build it with BuscaConfig(reid_use_batch_stats=False) "
+                    "and load them (a reference .pth, an .npz's "
+                    "batch_stats, or eval/frozen_delta.py::"
+                    "calibrate_batch_stats)")
+            if debug_dir is not None:
+                raise ValueError("the decision montage is not supported with "
+                                 f"reid_stats={reid_stats!r} (use the "
+                                 "default batch mode)")
+            config = dataclasses.replace(config, reid_use_batch_stats=False)
         if debug_dir is not None:
             raise NotImplementedError(
                 _NOT_PORTED.format("item 25", "debug montage"))
@@ -130,6 +166,7 @@ class AssociationEngine:
             raise ValueError(f"the model computes in {model.config.dtype}, "
                              f"the config says {config.dtype}")
         self.reid_stats = reid_stats
+        self.auto_fused_max_t = int(auto_fused_max_t)
         self.config = config
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -148,11 +185,38 @@ class AssociationEngine:
         self._std = torch.tensor(INPUT_PIXEL_STD_BGR.tolist(),
                                  device=self.device)
         self._255 = torch.full((), 255.0, device=self.device)
+        if frozen:
+            # uid-keyed LRU of encoded features: with the device feature
+            # bank it maps (uid, normalize) -> a row of the [cap, F] bank
+            # (16384 x 512 float32 = 32 MB), without it it holds the [F]
+            # vectors on the host
+            self._feat_cache: OrderedDict = OrderedDict()
+            self._feat_cache_cap = int(feat_cache_slots)
+            self._zero_crop = np.zeros(self.crop_hw + (3,), np.uint8)
+            self._feat_bank = bool(feat_bank)
+            if self._feat_bank:
+                # slot 0 is scratch: encode-batch padding rows are written
+                # there and score-batch padding rows read it (masked lanes;
+                # the feature scorer couples no rows)
+                self._slot_of: OrderedDict = OrderedDict()
+                self._free_slots = list(range(self._feat_cache_cap - 1, 0,
+                                              -1))
+                self._bank = None  # [cap, F] float32 zeros, made lazily
+                self._bank_gen = 0  # bumped by _reset_bank
 
     @property
     def banked(self) -> bool:
-        """Whether scoring ships bank slot indices instead of pixels."""
-        return self.bank is not None and self.dedup_candidates
+        """Whether scoring ships crop-bank slot indices instead of pixels.
+        Frozen modes ship features, never pixels."""
+        return (self.bank is not None and self.dedup_candidates
+                and self.reid_stats == "batch")
+
+    @property
+    def _keep_mem_lists(self) -> bool:
+        """Request prep keeps per-track crop LISTS (not one stacked array)
+        where a crop's identity matters: the crop bank or the feature
+        cache."""
+        return self.banked or self.reid_stats in ("frozen", "auto")
 
     # ------------------------------------------------------------ device --
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
@@ -271,11 +335,17 @@ class AssociationEngine:
             keep_highest_value=keep_highest_value,
         )
         t_total = sum(req[8] for _, req, _ in preps)
-        if (len(preps) == 1 or t_total > self.buckets[-1]
-                or not self.dedup_candidates):
-            # one live request, a batch above the largest bucket, or the
-            # duplicated path: the prepped requests one by one
-            # (busca_tpu/assoc/engine.py:651-669)
+        if self.reid_stats == "frozen" or (
+                self.reid_stats == "auto"
+                and t_total > self.auto_fused_max_t):
+            return self._associate_many_frozen(preps, results,
+                                               normalize_ims, post_kw)
+        if (self.reid_stats == "auto" or len(preps) == 1
+                or t_total > self.buckets[-1] or not self.dedup_candidates):
+            # a tiny auto batch (fused per request, as _score_prepped
+            # routes it), one live request, a batch above the largest
+            # bucket, or the duplicated path: the prepped requests one by
+            # one (busca_tpu/assoc/engine.py:636-654)
             for i, req, ndt in preps:
                 probs = self._score_prepped(req, normalize_ims)
                 (_, _, reliable, det_inds, _, _, num_avail, _, _) = req
@@ -287,6 +357,22 @@ class AssociationEngine:
             results[i] = self._postprocess(
                 probs[row0:row0 + t_count], reliable, det_inds, num_avail,
                 ndt, **post_kw)
+        return results
+
+    def _associate_many_frozen(self, preps, results, normalize_ims,
+                               post_kw):
+        """The frozen branch of :meth:`associate_many`: frozen features
+        couple no requests, so the requests are scored as one batch
+        (busca_tpu/assoc/engine.py:573-634)."""
+        probs = self._frozen_scores([req for _, req, _ in preps],
+                                    normalize_ims)
+        row = 0
+        for i, req, ndt in preps:
+            (_, _, reliable, det_inds, _, _, num_avail, _, t_count) = req
+            results[i] = self._postprocess(
+                probs[row:row + t_count], reliable, det_inds, num_avail,
+                ndt, **post_kw)
+            row += t_count
         return results
 
     def _score_grouped(self, preps, normalize_ims):
@@ -384,6 +470,10 @@ class AssociationEngine:
         """Raw probabilities ``[T, C + extras]`` of one prepped request."""
         (mem_crops, mem_boxes, _reliable, det_inds, can_boxes, unit_crop,
          _num_available, _d_count, t_count) = req
+        if self.reid_stats in ("frozen", "auto"):
+            return self._score_frozen(mem_crops, mem_boxes, det_inds,
+                                      can_boxes, unit_crop, t_count,
+                                      normalize_ims)
         if self.banked:
             return self._score_bucketed_unique_b(
                 mem_crops, det_inds, unit_crop, mem_boxes, can_boxes,
@@ -429,8 +519,9 @@ class AssociationEngine:
         t_count = len(tracks)
         d_count = len(dets)
 
-        # banked scoring keeps per-track crop LISTS (crop identity matters)
-        keep_lists = self.banked
+        # mem crops stay per-track host-mirror lists where crop identity
+        # matters (None = zero memory)
+        keep_lists = self._keep_mem_lists
         if keep_lists:
             mem_crops: list = [None] * t_count
         else:
@@ -619,3 +710,347 @@ class AssociationEngine:
             )
             out.append(probs[:end - start])
         return np.concatenate(out, axis=0)
+
+    # ------------------------------------------------ frozen-stats scoring --
+    def _score_frozen(self, mem_crops, mem_boxes, det_inds, can_boxes,
+                      unit_crop, t_count, normalize_ims) -> np.ndarray:
+        """Frozen and auto branches of :meth:`_score_prepped`
+        (busca_tpu/assoc/engine.py:473-508): ``[T, C + extras]``."""
+        if self.reid_stats == "auto" and t_count <= self.auto_fused_max_t:
+            # a tiny call: one fused forward (BN on the running statistics
+            # there too, so the numbers are the cached path's)
+            return self._score_bucketed_unique(
+                self._stack_mem_lists(mem_crops), det_inds, unit_crop,
+                mem_boxes, can_boxes, normalize_ims)
+        return self._frozen_scores(
+            [(mem_crops, mem_boxes, None, det_inds, can_boxes, unit_crop,
+              None, None, t_count)], normalize_ims)
+
+    def _frozen_scores(self, reqs, normalize_ims) -> np.ndarray:
+        """Probabilities of prepped requests' rows, concatenated, from
+        cached features: through the device bank (the call's new crops
+        encoded and written in one go; a failure rolls the call's keys
+        back, and one after the scatter resets the bank, as busca_tpu
+        does) or the host cache."""
+        ctx = self._new_bank_ctx() if self._feat_bank else None
+        mem, can = [], []
+        try:
+            for m_crops, _, _, det_inds, _, unit_crop, _, _, _ in reqs:
+                if ctx is not None:
+                    mf, cf = self._frozen_request_slots(
+                        m_crops, det_inds, unit_crop, normalize_ims, ctx)
+                else:
+                    mf, cf = self._frozen_request_feats(
+                        m_crops, det_inds, unit_crop, normalize_ims)
+                mem.append(mf)
+                can.append(cf)
+            arrays = (np.concatenate(mem), np.concatenate(can),
+                      np.concatenate([r[1] for r in reqs]),
+                      np.concatenate([r[4] for r in reqs]))
+            if ctx is None:
+                return self._score_feats_chunked(*arrays)
+            self._flush_fresh(ctx, normalize_ims)
+            probs = self._score_bank_chunked(*arrays)
+        except Exception:
+            if ctx is not None:
+                if ctx["flushed"]:
+                    self._reset_bank()
+                self._rollback_ctx(ctx)
+            raise
+        self._release_ephemeral(ctx)
+        return probs
+
+    @torch.inference_mode()
+    def _encode(self, crops: np.ndarray, normalize_ims) -> torch.Tensor:
+        """uint8 BGR crops ``[N, h, w, 3]`` -> L2-normalized features
+        ``[N, F]`` on the device (BN on the running statistics: each
+        crop's feature is its own)."""
+        _, feats = self.model.reid_encoder.model(
+            self._prep(self._tensor(crops), normalize_ims))
+        return feats
+
+    @torch.inference_mode()
+    def _encode_scatter(self, crops: np.ndarray, slots: np.ndarray,
+                        normalize_ims):
+        """Encode ``crops`` and write their features into the bank's rows
+        ``slots`` in place, on the current stream."""
+        feats = self._encode(crops, normalize_ims)
+        self._bank.index_copy_(0, self._tensor(slots),
+                               feats.to(self._bank.dtype))
+
+    @torch.inference_mode()
+    def _score_feats(self, mem_feats, can_feats, mem_boxes, can_boxes,
+                     mask) -> torch.Tensor:
+        """The decision forward from features ``[B, L, F]`` and ``[B, C,
+        F]``: probabilities on the device."""
+        logits = self.model(None, None, mem_boxes, can_boxes, mask,
+                            mem_feats=mem_feats, can_feats=can_feats)
+        return torch.softmax(logits, dim=-1)
+
+    @torch.inference_mode()
+    def _score_bank(self, mem_slots, can_slots, mem_boxes, can_boxes,
+                    mask) -> torch.Tensor:
+        """:meth:`_score_feats` on the bank's rows ``mem_slots [B, L]`` and
+        ``can_slots [B, C]``."""
+        return self._score_feats(self._bank[mem_slots],
+                                 self._bank[can_slots], mem_boxes,
+                                 can_boxes, mask)
+
+    def _resolve_feats(self, units, normalize_ims) -> np.ndarray:
+        """Host features ``[n, F]`` of ``(uid_or_None, crop_or_None)``
+        units.  ``crop=None`` is the zero crop (a missing slot or an
+        incomplete memory), cached under uid 0 (network.py:300-308,
+        352-355).  Cached uids hit the LRU; the rest are encoded in one
+        bucketed call and inserted.  Untagged crops (uid None) are encoded
+        every time."""
+        out = np.zeros((len(units), self.config.dim_embedding), np.float32)
+        cache = self._feat_cache
+        enc_crops: list = []
+        enc_keys: list = []
+        enc_pos: List[List[int]] = []
+        pending = {}  # cache key -> row in enc_crops
+        for i, (uid, crop) in enumerate(units):
+            if crop is None:
+                uid, crop = 0, self._zero_crop
+            key = None if uid is None else (uid, bool(normalize_ims))
+            if key is not None:
+                hit = cache.get(key)
+                if hit is not None:
+                    cache.move_to_end(key)
+                    out[i] = hit
+                    continue
+                j = pending.get(key)
+                if j is not None:
+                    enc_pos[j].append(i)
+                    continue
+                pending[key] = len(enc_crops)
+            enc_keys.append(key)
+            enc_pos.append([i])
+            enc_crops.append(crop)
+        if enc_crops:
+            feats = self._encode(self._crop_batch(enc_crops),
+                                 bool(normalize_ims)).cpu().numpy()
+            for j, key in enumerate(enc_keys):
+                f = feats[j]
+                for i in enc_pos[j]:
+                    out[i] = f
+                if key is not None:
+                    cache[key] = f
+                    if len(cache) > self._feat_cache_cap:
+                        cache.popitem(last=False)
+        return out
+
+    def _crop_batch(self, crops) -> np.ndarray:
+        """``crops`` stacked into a batch padded with zero crops to
+        ``next_pow2(n, 8)`` rows."""
+        batch = np.zeros((next_pow2(len(crops), min_bucket=8),)
+                         + self.crop_hw + (3,), np.uint8)
+        for j, cr in enumerate(crops):
+            batch[j] = cr
+        return batch
+
+    def _frozen_request_feats(self, mem_entries, det_inds, unit_crop,
+                              normalize_ims):
+        """One request's feature batches ``([T, L, F], [T, C, F])``: memory
+        crops hit the cross-frame cache, candidates are deduplicated across
+        tracks before encoding and expanded per slot on the host."""
+        t_count = len(mem_entries)
+        seq_len, c = self.seq_len, self.num_candidates
+        units: list = []
+        for e in mem_entries:
+            if e is None:
+                units.extend([(0, None)] * seq_len)
+            else:
+                units.extend([(getattr(cr, "uid", None), cr) for cr in e])
+        unit_to_row = {}
+        can_units: list = [(0, None)]  # row 0 = the zero crop
+        gather = np.zeros((t_count, c), np.int64)
+        for ti in range(t_count):
+            for ci, di in enumerate(det_inds[ti]):
+                if di is None:
+                    continue  # gather stays 0: the zero crop's feature
+                row = unit_to_row.get(di)
+                if row is None:
+                    crop = unit_crop(di)
+                    row = len(can_units)
+                    unit_to_row[di] = row
+                    can_units.append((getattr(crop, "uid", None), crop))
+                gather[ti, ci] = row
+        feats = self._resolve_feats(units + can_units, normalize_ims)
+        n_mem = t_count * seq_len
+        mem_feats = feats[:n_mem].reshape(t_count, seq_len, -1)
+        return mem_feats, feats[n_mem:][gather]
+
+    # ----------------------------------------- frozen device feature bank --
+    def _new_bank_ctx(self) -> dict:
+        """Per-call bank context: the fresh crops to encode and their slots,
+        the ephemeral (untagged-crop) slots released after the call, the
+        keys the call references (spared from eviction), the keys it
+        registered (rolled back if it fails before its scatter), and the
+        bank generation it was built against."""
+        return {"fresh_crops": [], "fresh_slots": [], "ephemeral": [],
+                "referenced": set(), "new_keys": [], "flushed": False,
+                "gen": self._bank_gen}
+
+    def _reset_bank(self):
+        """Drop the bank and every registration: the recovery after a
+        failure once the scatter was enqueued (its rows are then unknown).
+        Speed only: every feature re-encodes deterministically."""
+        self._bank = None
+        self._slot_of.clear()
+        self._free_slots = list(range(self._feat_cache_cap - 1, 0, -1))
+        self._bank_gen += 1
+
+    def _rollback_ctx(self, ctx):
+        """Undo a failed call's registrations, which would otherwise hit
+        bank rows never written."""
+        if ctx["gen"] != self._bank_gen:
+            # the bank was reset under this call: its slots are reclaimed
+            ctx["new_keys"].clear()
+            ctx["ephemeral"].clear()
+            return
+        for key, slot in ctx["new_keys"]:
+            if self._slot_of.get(key) == slot:
+                del self._slot_of[key]
+                self._free_slots.append(slot)
+        ctx["new_keys"].clear()
+        self._release_ephemeral(ctx)
+
+    def _alloc_slot(self, ctx) -> int:
+        if self._free_slots:
+            return self._free_slots.pop()
+        # evict the least recently used key that this call does not
+        # reference: the call's gather indices stay valid until it scores
+        referenced = ctx["referenced"]
+        for key in self._slot_of:
+            if key not in referenced:
+                return self._slot_of.pop(key)
+        raise RuntimeError(
+            "feature bank exhausted: one call references more than "
+            f"{self._feat_cache_cap - 1} distinct crops; raise "
+            "feat_cache_slots")
+
+    def _slot_for(self, uid, crop, normalize_flag: bool, ctx) -> int:
+        """The bank slot of one unit, a fresh encode queued on a miss.
+        ``crop=None`` is the zero crop (uid 0, as the host cache)."""
+        if crop is None:
+            uid = 0
+        key = None if uid is None else (uid, normalize_flag)
+        slots = self._slot_of
+        if key is not None:
+            s = slots.get(key)
+            if s is not None:
+                slots.move_to_end(key)
+                ctx["referenced"].add(key)
+                return s
+        s = self._alloc_slot(ctx)
+        ctx["fresh_crops"].append(self._zero_crop if crop is None else crop)
+        ctx["fresh_slots"].append(s)
+        if key is None:
+            ctx["ephemeral"].append(s)  # encoded for this call only
+        else:
+            slots[key] = s
+            ctx["referenced"].add(key)
+            ctx["new_keys"].append((key, s))
+        return s
+
+    def _frozen_request_slots(self, mem_entries, det_inds, unit_crop,
+                              normalize_ims, ctx):
+        """One request's bank gather maps ``([T, L], [T, C])``, as
+        :meth:`_frozen_request_feats` with slots for feature rows."""
+        t_count = len(mem_entries)
+        seq_len, c = self.seq_len, self.num_candidates
+        flag = bool(normalize_ims)
+        zero_slot = self._slot_for(0, None, flag, ctx)
+        mem_slots = np.full((t_count, seq_len), zero_slot, np.int64)
+        for ti, e in enumerate(mem_entries):
+            if e is None:
+                continue  # an incomplete memory: zero-crop features
+            for li, cr in enumerate(e):
+                mem_slots[ti, li] = self._slot_for(
+                    getattr(cr, "uid", None), cr, flag, ctx)
+        can_slots = np.full((t_count, c), zero_slot, np.int64)
+        unit_slot: dict = {}
+        for ti in range(t_count):
+            for ci, di in enumerate(det_inds[ti]):
+                if di is None:
+                    continue
+                s = unit_slot.get(di)
+                if s is None:
+                    cr = unit_crop(di)
+                    s = self._slot_for(getattr(cr, "uid", None), cr, flag,
+                                       ctx)
+                    unit_slot[di] = s
+                can_slots[ti, ci] = s
+        return mem_slots, can_slots
+
+    def _bank_init(self):
+        if self._bank is None:
+            with torch.inference_mode():
+                self._bank = torch.zeros(
+                    (self._feat_cache_cap, self.config.dim_embedding),
+                    dtype=torch.float32, device=self.device)
+
+    def _flush_fresh(self, ctx, normalize_ims):
+        """One encode + scatter for the call's fresh crops (padding rows go
+        to the scratch slot 0)."""
+        crops = ctx["fresh_crops"]
+        if not crops:
+            return
+        self._bank_init()
+        batch = self._crop_batch(crops)
+        slots = np.zeros(len(batch), np.int64)
+        slots[:len(crops)] = ctx["fresh_slots"]
+        try:
+            self._encode_scatter(batch, slots, bool(normalize_ims))
+        except Exception:
+            self._reset_bank()
+            raise
+        ctx["flushed"] = True
+
+    def _chunked_scores(self, t_count, arrays, scorer) -> np.ndarray:
+        """The chunk loop of the two frozen scorers: each slice of
+        ``arrays`` padded to its bucket, ``scorer(*padded, mask)``, the
+        probability rows trimmed and concatenated."""
+        out = []
+        for start, end, _b, pad, mask in self._chunks(t_count):
+            probs = scorer(*(self._tensor(_padded(a, start, end, pad))
+                             for a in arrays), self._tensor(mask))
+            out.append(probs.cpu().numpy()[:end - start])
+        return np.concatenate(out, axis=0)
+
+    def _score_bank_chunked(self, mem_slots, can_slots, mem_boxes,
+                            can_boxes) -> np.ndarray:
+        """The bank scorer over the bucket-padded slot batch (padding rows
+        read the scratch slot)."""
+        self._bank_init()
+        return self._chunked_scores(
+            mem_slots.shape[0], (mem_slots, can_slots, mem_boxes, can_boxes),
+            lambda *a: self._score_bank(*a))
+
+    def _release_ephemeral(self, ctx):
+        # the call's work is enqueued on one stream, so a later scatter into
+        # these slots runs after its gathers; nothing to do if the bank was
+        # reset under the call
+        if ctx["gen"] == self._bank_gen:
+            self._free_slots.extend(ctx["ephemeral"])
+        ctx["ephemeral"].clear()
+
+    def _score_feats_chunked(self, mem_feats, can_feats, mem_boxes,
+                             can_boxes) -> np.ndarray:
+        """The feature scorer over the bucket-padded feature batch."""
+        return self._chunked_scores(
+            mem_feats.shape[0], (mem_feats, can_feats, mem_boxes, can_boxes),
+            lambda *a: self._score_feats(*a))
+
+    def _stack_mem_lists(self, mem_entries) -> np.ndarray:
+        """Per-track crop lists (the frozen prep's format) as the ``[T, L,
+        H, W, 3]`` array the fused scorers take; ``None`` (an incomplete
+        memory) gives zero crops (network.py:300-308)."""
+        out = np.zeros((len(mem_entries), self.seq_len) + self.crop_hw
+                       + (3,), np.uint8)
+        for ti, entry in enumerate(mem_entries):
+            if entry is not None:
+                for li, cr in enumerate(entry):
+                    out[ti, li] = cr
+        return out

@@ -5,12 +5,13 @@ The reference hard-codes per-video BYTE thresholds inside its eval loop
 (adapters/ByteTrack/yolox/evaluators/mot_evaluator.py:141-164), and GHOST
 gates its ego-motion compensation per sequence
 (adapters/GHOST/src/tracking_utils.py:209-221).  Both are copied here as
-data for the eval CLI.
+data for the eval CLI.  The published MOT17-val golden table is here for
+``eval/golden.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 # mot_evaluator.py:146-150 — per-video track_buffer overrides
 _CUSTOM_TRACK_BUFFER = {
@@ -77,3 +78,39 @@ def custom_byte_thresholds(
         if n in _CUSTOM_TRACK_THRESH:
             thresh = _CUSTOM_TRACK_THRESH[n]
     return {"track_thresh": thresh, "track_buffer": buf}
+
+
+# README.md:126-131 — the published MOT17-val StrongSORT golden table
+# (BoT + ECC + NSA + EMA + MC + woC, seq_len 11, 5 candidates, thresh 0.5).
+GOLDEN_MOT17_VAL = {
+    "strongsort": {"mota": 76.174, "hota": 69.289, "idf1": 81.864, "ids": 234},
+    "strongsort_busca": {
+        "mota": 76.795,
+        "hota": 69.392,
+        "idf1": 82.272,
+        "ids": 219,
+    },
+}
+
+
+def golden_diff(
+    measured: Dict[str, float],
+    variant: str = "strongsort_busca",
+    table: Optional[Dict[str, Dict[str, float]]] = None,
+) -> Dict[str, Dict[str, float]]:
+    """Measured metrics vs the golden table -> {metric: {want, got, diff}}.
+
+    ``measured`` uses the same keys (mota/hota/idf1 as percentages, ids as a
+    count).  The report is data; callers decide tolerances.
+    """
+    table = table or GOLDEN_MOT17_VAL
+    want = table[variant]
+    report = {}
+    for k, v in want.items():
+        got = measured.get(k)
+        report[k] = {
+            "want": v,
+            "got": got,
+            "diff": None if got is None else round(got - v, 3),
+        }
+    return report

@@ -27,7 +27,9 @@ Modes:
   ``--lockstep`` runs the sequences frame by frame in step, each frame's
   BUSCA third rounds served by one grouped association: with a YOLOX
   ``--detector``, one batch step per frame of each same-resolution group;
-  also over ``det/det.txt`` and ``--npy-det``.
+  also over ``det/det.txt`` and ``--npy-det``.  ``--det-ap`` prints the
+  COCO detection-AP table of a live YOLOX or TransCenter detector's raw
+  outputs against the sequences' gt.
 
   StrongSORT, DeepSORT, GHOST and MOTDT take ReID features from a
   ``--reid-ckpt`` extractor run on each detection's crop (without one, a
@@ -59,7 +61,10 @@ Without ``--busca-config`` the model is ``BuscaConfig()`` (ResNet-50,
 d=512, 4 layers, 4 heads, ff 1024); without ``--busca-ckpt`` its weights are
 random, drawn from ``--seed``; without ``--detector-ckpt`` so are the
 detector's.  ``--busca-dtype`` (default ``bfloat16``, as busca_tpu's CLI)
-is BUSCA's compute dtype; ``float32`` is the parity mode.  The detectors
+is BUSCA's compute dtype; ``float32`` is the parity mode.
+``--reid-stats frozen|auto`` runs BUSCA's ReID on the checkpoint's running
+BN statistics with features cached across frames (busca_tpu's opt-in
+serving deviation; ``batch``, the reference's, is the default).  The detectors
 take their dtype from their configs only, as in busca_tpu.  On the card the
 CLI turns TF32 off and keeps bf16 products' reductions in float32
 (:func:`~busca_tpu_torch.utils.device.set_card_precision`).
@@ -71,6 +76,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 from typing import Optional
 
 import numpy as np
@@ -80,7 +86,7 @@ import torch
 def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
                  device="cuda", crop_hw=(384, 128),
                  bank_slots: Optional[int] = None, seed: int = 0,
-                 dtype: Optional[str] = None):
+                 dtype: Optional[str] = None, reid_stats: str = "batch"):
     """An :class:`~busca_tpu_torch.assoc.engine.AssociationEngine` on
     ``device``.
 
@@ -95,6 +101,14 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
       dtype: overrides the config's compute dtype ("float32" or
         "bfloat16"), as busca_tpu's ``build_engine``; the CLI passes its
         ``--busca-dtype``.  The weights stay float32.
+      reid_stats: ``"batch"`` (the reference's batch-statistics BN, the
+        default), ``"frozen"`` or ``"auto"`` (the stored running statistics
+        and the engine's feature bank; an opt-in deviation, PARITY.md
+        "Frozen-stats ReID").  The frozen modes build the model with
+        ``reid_use_batch_stats=False`` and take its running statistics from
+        the checkpoint (an ``.npz``'s ``batch_stats``, a reference
+        ``.pth``'s ``running_mean``/``running_var``); the feature bank
+        replaces the crop bank, so they have none.
     Returns:
       ``(engine, tracker_kwargs)``.
     """
@@ -113,6 +127,9 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
         busca_cfg, tracker_kwargs = BuscaConfig(), {}
     if dtype is not None:  # busca_tpu/eval/run.py:76-77
         busca_cfg = dataclasses.replace(busca_cfg, dtype=dtype)
+    frozen = reid_stats in ("frozen", "auto")
+    if frozen:  # busca_tpu/eval/run.py:78-81
+        busca_cfg = dataclasses.replace(busca_cfg, reid_use_batch_stats=False)
     model = BuscaModel(busca_cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
     if ckpt:
@@ -120,12 +137,14 @@ def build_engine(config: Optional[str] = None, ckpt: Optional[str] = None,
     model = model.to(dev).eval()
     if bank_slots is None:
         bank_slots = 4096 if dev.type == "cuda" else 256
-    bank = DeviceCropBank(crop_hw, bank_slots, dev) if bank_slots else None
+    bank = None
+    if bank_slots and not frozen:
+        bank = DeviceCropBank(crop_hw, bank_slots, dev)
     engine = AssociationEngine(
         busca_cfg, model,
         seq_len=tracker_kwargs.get("seq_len", 11),
         num_candidates=tracker_kwargs.get("num_candidates", 5),
-        crop_hw=crop_hw, bank=bank,
+        crop_hw=crop_hw, bank=bank, reid_stats=reid_stats,
     )
     return engine, tracker_kwargs
 
@@ -426,7 +445,6 @@ def postprocess_result(res, out_path, link_model=None, gsi=False):
 # flags of busca_tpu's CLI whose code is not ported yet, and the ROADMAP.md
 # Queue 1 item that ports it
 LATER_FLAGS = {
-    "det_ap": 24,
     "online_visualization": 25,
 }
 
@@ -490,6 +508,7 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
     from busca_tpu_torch.eval.runner import run_mot_sequence
 
     eval_inputs = {}
+    det_ap_dets, det_ap_gts = {}, {}
     for seq_dir in args.mot_dir:
         name = os.path.basename(seq_dir.rstrip("/"))
         tracker = make_tracker(
@@ -529,11 +548,14 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
                 res = track_frames_centertrack(detector, tracker, frames,
                                                name=info.name)
             else:
+                seq_det_log = [] if args.det_ap else None
                 res = track_frames_with_detector(
                     detector, shim_for_runner(args.tracker, tracker,
                                               feature_extractor,
                                               args.crop_hw),
-                    frames, name=info.name)
+                    frames, name=info.name, det_log=seq_det_log)
+                for fid, boxes, scores in seq_det_log or ():
+                    det_ap_dets[(name, fid)] = (boxes, scores)
             mot.write_results(out_path, res.results)
         else:
             res = run_mot_sequence(
@@ -542,7 +564,22 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
                 output_path=out_path, max_frames=args.max_frames)
         report_sequence(args, seq_dir, res, out_path, link_model,
                         eval_inputs)
-    return evaluate_all(args, eval_inputs)
+        if args.det_ap and name in eval_inputs:
+            for fid, (tlwh, _ids) in eval_inputs[name][0].items():
+                tlbr = tlwh.copy()
+                tlbr[:, 2:] += tlbr[:, :2]
+                det_ap_gts[(name, fid)] = tlbr
+    per_seq = evaluate_all(args, eval_inputs)
+    if det_ap_dets:
+        # the COCO detection table over the raw detector outputs, pooled
+        # across sequences (mot_evaluator.py:659-711)
+        from busca_tpu_torch.eval.detection import (
+            coco_eval_full,
+            format_coco_table,
+        )
+
+        print(format_coco_table(coco_eval_full(det_ap_dets, det_ap_gts)))
+    return per_seq
 
 
 def report_sequence(args, seq_dir, res, out_path, link_model, eval_inputs,
@@ -708,8 +745,11 @@ def main(argv=None):
     parser.add_argument("--reid-stats", choices=("batch", "frozen", "auto"),
                         default="batch",
                         help="BUSCA's ReID BN mode: batch (the reference's "
-                             "batch statistics, the default and the one "
-                             "mode ported); frozen and auto are refused")
+                             "batch statistics, the default); frozen (the "
+                             "checkpoint's running statistics, features "
+                             "cached across frames in a device bank: an "
+                             "opt-in deviation); auto (frozen numerics, one "
+                             "fused forward for the smallest calls)")
     parser.add_argument("--mem-cap", type=int, default=None,
                         help="bound each track's appearance memory to this "
                              "many entries (a dense recent tail and an "
@@ -778,6 +818,10 @@ def main(argv=None):
                              "CenterTrack's and TransCenter's out_thresh")
     parser.add_argument("--det-nms", type=float, default=0.7,
                         help="exp.nmsthre")
+    parser.add_argument("--det-ap", action="store_true",
+                        help="print the 12-number COCO detection-AP table of "
+                             "the raw detector output vs MOT gt "
+                             "(mot_evaluator.py:659-711)")
     parser.add_argument("--max-frames", type=int, default=None,
                         help="cap frames per sequence")
     parser.add_argument("--hota", action="store_true",
@@ -822,10 +866,6 @@ def main(argv=None):
                      "(dict IO)")
     if args.detector_artifact and args.detector:
         parser.error("--detector-artifact replaces --detector")
-    if args.reid_stats != "batch":
-        parser.error(f"--reid-stats {args.reid_stats} (frozen BN statistics "
-                     "and the feature bank) is not ported yet (ROADMAP.md "
-                     "Queue 1 items 7 and 24)")
     if args.lockstep_dp:
         parser.error("--lockstep-dp (the lockstep batch sharded over "
                      "devices) is not ported yet (ROADMAP.md Queue 1 item "
@@ -854,7 +894,7 @@ def main(argv=None):
         engine, tracker_kwargs = build_engine(
             args.busca_config, args.busca_ckpt, args.device, args.crop_hw,
             bank_slots=args.crop_bank_slots, seed=args.seed,
-            dtype=args.busca_dtype,
+            dtype=args.busca_dtype, reid_stats=args.reid_stats,
         )
         tracker_kwargs["use_busca"] = True
     if args.cmc_scale != 1.0:
@@ -902,6 +942,12 @@ def main(argv=None):
             print(f"aflink: synthetic-trained link model (acc {acc:.2f})")
         elif args.aflink:
             link_model = load_aflink(args.aflink, args.device)
+        if args.det_ap and (args.lockstep or args.npy_det
+                            or (args.detector in (None, "centertrack")
+                                and not args.detector_artifact)):
+            print("WARNING: --det-ap only applies to the per-sequence "
+                  "yolox/transcenter live-detector path; no detection-AP "
+                  "table will be produced for this mode", file=sys.stderr)
         run = run_lockstep if args.lockstep else run_mot
         return run(args, detector, engine, tracker_kwargs,
                    feature_extractor, link_model)

@@ -188,13 +188,17 @@ class BuscaModel(nn.Module):
         can_group: Optional[torch.Tensor] = None,
         num_groups: int = 1,
         generator: Optional[torch.Generator] = None,
+        mem_feats: Optional[torch.Tensor] = None,
+        can_feats: Optional[torch.Tensor] = None,
     ):
         """Score candidates for a batch of tracks.
 
         Args:
-          mem_crops: ``[B, L_mem, H, W, 3]`` normalized RGB memory crops.
+          mem_crops: ``[B, L_mem, H, W, 3]`` normalized RGB memory crops
+            (None with ``mem_feats``).
           can_crops: ``[B, C, H, W, 3]`` normalized RGB candidate crops, or
-            in deduplicated mode ``[U, H, W, 3]`` unique candidate crops.
+            in deduplicated mode ``[U, H, W, 3]`` unique candidate crops
+            (None with ``can_feats``).
           mem_bboxes: ``[B, L_mem, 4]`` ltrb boxes.
           can_bboxes: ``[B, C, 4]`` ltrb candidate boxes.
           sample_mask: ``[B]`` 1 for real tracks, 0 for padded lanes.
@@ -212,20 +216,41 @@ class BuscaModel(nn.Module):
             without a gather.
           generator: the dropout masks' generator, on the model's device
             (used only in training mode).
+          mem_feats / can_feats: precomputed ReID features instead of crops
+            (``[B, L_mem, F]``, and ``[U, F]`` with ``can_gather`` or
+            ``[B, C, F]`` without): the ReID stage is skipped.  Meaningful
+            with frozen BN statistics, where a crop's feature does not
+            depend on its batch (the engine's ``reid_stats='frozen'``).
+            Both or neither.
 
         Returns:
           logits ``[B, C + extras]`` (and the attention list).
         """
-        cfg = self.config
         b, l_mem = mem_bboxes.shape[0], mem_bboxes.shape[1]
         c = can_bboxes.shape[1]
-        d_model = cfg.trans_dim
-        dev = mem_bboxes.device
+        if (mem_feats is None) != (can_feats is None):
+            raise ValueError("mem_feats and can_feats must be given together")
+        if mem_feats is not None:
+            # busca_tpu/models/busca.py:188-194: the unique candidate
+            # features expanded per slot
+            if can_gather is not None:
+                can_feats = can_feats[can_gather.long()]
+        else:
+            mem_feats, can_feats = self._reid_feats(
+                mem_crops, can_crops, b, l_mem, c, sample_mask, can_weights,
+                can_gather, mem_group, can_group, num_groups)
+        return self._decide(mem_feats, can_feats, mem_bboxes, can_bboxes,
+                            return_att, generator)
 
-        # ONE ReID pass over memory + candidate crops; the [N, 2 * groups]
-        # weights (column r = request r's memory, column groups + r its
-        # candidates, zero rows = padded lanes) keep the reference's
-        # per-group BN statistics (busca_tpu/models/busca.py:240-264)
+    def _reid_feats(self, mem_crops, can_crops, b, l_mem, c, sample_mask,
+                    can_weights, can_gather, mem_group, can_group,
+                    num_groups):
+        """The features ``([B, L_mem, F], [B, C, F])`` of ONE ReID pass over
+        memory + candidate crops; the [N, 2 * groups] weights (column r =
+        request r's memory, column groups + r its candidates, zero rows =
+        padded lanes) keep the reference's per-group BN statistics
+        (busca_tpu/models/busca.py:240-264)."""
+        dev = mem_crops.device
         n_mem = b * l_mem
         if can_gather is not None:
             can_flat = can_crops
@@ -266,7 +291,17 @@ class BuscaModel(nn.Module):
             can_feats = feats[n_mem:][can_gather.long()]  # [B, C, F]
         else:
             can_feats = feats[n_mem:].reshape(b, c, -1)
+        return mem_feats, can_feats
 
+    def _decide(self, mem_feats, can_feats, mem_bboxes, can_bboxes,
+                return_att, generator):
+        """The decision Transformer from the ReID features: logits ``[B, C
+        + extras]`` (and the attention list)."""
+        cfg = self.config
+        b, l_mem = mem_bboxes.shape[0], mem_bboxes.shape[1]
+        c = can_bboxes.shape[1]
+        d_model = cfg.trans_dim
+        dev = mem_bboxes.device
         scale = torch.sqrt(torch.tensor(float(d_model), device=dev))
         mem_emb = self.encoder(mem_feats) * scale
         can_emb = self.encoder(can_feats) * scale

@@ -24,6 +24,7 @@ reference's, so a reference state dict (``reid_encoder.model.*`` of
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -54,6 +55,11 @@ class BatchNorm(nn.Module):
     variance is E[x^2] - E[x]^2 clamped at 0 (``jnp.maximum(var, 0.0)``),
     so the gradients match JAX's.  Nothing updates the running statistics:
     busca_tpu's train step applies ``{"params": ...}`` only.
+
+    ``calib``: None, or a list to which every batch-statistics forward
+    appends its ``(count, sum_x, sum_x2)`` over the weighted samples
+    (busca_tpu's ``bn_calib`` collection, ``_sow_calib``); set by
+    :func:`collect_bn_calibration`.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -67,6 +73,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self.calib = None
 
     def _affine(self, x, mean, inv):
         """``(x - mean) * inv * weight + bias`` with ``mean``/``inv`` either
@@ -79,6 +86,10 @@ class BatchNorm(nn.Module):
         b = self.bias.reshape(shape[1:])
         return (x.to(torch.float32) - mean) * inv * w + b
 
+    def _record(self, count, sum_x, sum_x2):
+        self.calib.append(tuple(t.detach().to("cpu", torch.float64)
+                                for t in (count, sum_x, sum_x2)))
+
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.to(torch.float32)
@@ -88,6 +99,10 @@ class BatchNorm(nn.Module):
             axes = (0,) + tuple(range(2, x.dim()))
             mean = xf.mean(dim=axes)
             var = (xf * xf).mean(dim=axes) - mean * mean
+            if self.calib is not None:  # busca_tpu/models/reid.py:109-112
+                n = float(x.numel() // self.features)
+                self._record(torch.full((), n), mean * n,
+                             (var + mean * mean) * n)
         else:
             spatial_axes = tuple(range(2, x.dim()))
             spatial = 1
@@ -103,6 +118,8 @@ class BatchNorm(nn.Module):
                 denom = torch.clamp(w.sum() * spatial, min=1.0)
                 mean = (w @ s1) / denom
                 var = (w @ s2) / denom - mean * mean
+                if self.calib is not None:
+                    self._record(w.sum() * spatial, w @ s1, w @ s2)
             else:
                 denom_g = torch.clamp(w.sum(0) * spatial, min=1.0)  # [G]
                 mean_g = (w.t() @ s1) / denom_g[:, None]  # [G, C]
@@ -110,6 +127,9 @@ class BatchNorm(nn.Module):
                 var_g = torch.clamp(ex2_g - mean_g * mean_g, min=0.0)
                 inv_g = torch.reciprocal(torch.sqrt(var_g + self.eps))
                 ids = torch.argmax(w, dim=-1)  # zero rows -> group 0
+                if self.calib is not None:
+                    m = w.sum(1)  # a sample's multiplicity
+                    self._record(m.sum() * spatial, m @ s1, m @ s2)
                 y = self._affine(x, mean_g[ids], inv_g[ids])
                 return y.to(x.dtype)
         var = torch.clamp(var, min=0.0)
@@ -117,6 +137,24 @@ class BatchNorm(nn.Module):
         # busca_tpu/models/reid.py:141-143: float32 statistics and affine,
         # the result in the input's dtype
         return self._affine(x, mean, inv).to(x.dtype)
+
+
+@contextlib.contextmanager
+def collect_bn_calibration(module: nn.Module):
+    """Record the calibration aggregates of every :class:`BatchNorm` under
+    ``module`` while the block runs: yields ``{name: [(count, sum_x,
+    sum_x2), ...]}``, one entry per batch-statistics forward, float64 on
+    the host.  Outside the block nothing is recorded and nothing costs."""
+    bns = {name: m for name, m in module.named_modules()
+           if isinstance(m, BatchNorm)}
+    out = {name: [] for name in bns}
+    for name, m in bns.items():
+        m.calib = out[name]
+    try:
+        yield out
+    finally:
+        for m in bns.values():
+            m.calib = None
 
 
 def _conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,

@@ -9,7 +9,9 @@ protocol of :mod:`busca_tpu_torch.serve.server`), and a scheduler thread
 coalesces their in-flight frames into one ``detect_batch`` call per frame
 resolution plus ONE grouped third-round association per tick
 (``trackers/base.py::service_deferred_updates``; per-request BN groups keep
-every stream's numbers equal to a standalone call).
+every stream's numbers equal to a standalone call; an engine with
+``reid_stats='frozen'`` scores the tick's requests in the frozen branch of
+``associate_many``, where frozen features couple no streams).
 
 Batching policy: a tick fires when every active stream has a frame queued,
 or after ``tick_timeout`` (default 10 ms) for stragglers: a slow client adds

@@ -371,8 +371,9 @@ def build_tracker_runtime(args):
     the eval CLI composes them (``eval/run.py``): the BUSCA YAML bundle's
     tracker kwargs first, explicit flags over them.  ``args`` needs
     ``use_busca``, ``tracker`` and ``reid_ckpt``; ``busca_config``,
-    ``busca_ckpt``, ``busca_dtype``, ``device``, ``seed``, ``crop_hw``,
-    ``track_thresh``, ``cmc_scale`` and ``mem_cap`` are read where present.
+    ``busca_ckpt``, ``busca_dtype``, ``reid_stats``, ``device``, ``seed``,
+    ``crop_hw``, ``track_thresh``, ``cmc_scale`` and ``mem_cap`` are read
+    where present.
     An invalid ``mem_cap`` raises ``ValueError`` here, at start-up, not in
     the factory on a client's first connection."""
     from busca_tpu_torch.eval import run as run_mod
@@ -384,7 +385,8 @@ def build_tracker_runtime(args):
         engine, busca_kwargs = run_mod.build_engine(
             args.busca_config, args.busca_ckpt, device=device,
             crop_hw=crop_hw, seed=getattr(args, "seed", 0),
-            dtype=getattr(args, "busca_dtype", None))
+            dtype=getattr(args, "busca_dtype", None),
+            reid_stats=getattr(args, "reid_stats", "batch"))
         busca_kwargs["use_busca"] = True
 
     feature_extractor = None
@@ -503,8 +505,11 @@ def main(argv=None):
                         "default, as the eval CLI) or float32 (parity)")
     p.add_argument("--reid-stats", choices=("batch", "frozen", "auto"),
                    default="batch",
-                   help="'batch' (the reference's batch-statistics BN) is "
-                        "the only mode ported")
+                   help="BUSCA's ReID BN: 'batch' (the reference's batch "
+                        "statistics), 'frozen' (the checkpoint's running "
+                        "statistics, features cached across frames in a "
+                        "device bank: an opt-in deviation) or 'auto' "
+                        "(frozen numerics, the smallest calls fused)")
     p.add_argument("--snapshot-key-file", default=None,
                    help="a file holding an HMAC key: snapshots are signed "
                         "and restore refuses unsigned or forged blobs")
@@ -540,9 +545,6 @@ def main(argv=None):
         if getattr(args, flag):
             p.error(f"--{flag.replace('_', '-')} is not ported yet "
                     f"(ROADMAP.md Queue 1 item {item})")
-    if args.reid_stats != "batch":
-        p.error(f"--reid-stats {args.reid_stats} is not ported yet "
-                "(ROADMAP.md Queue 1 items 7 and 24)")
     if args.use_busca and not args.busca_config:
         p.error("--use-busca requires --busca-config")
     if args.detector is None and not args.detector_artifact:

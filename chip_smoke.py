@@ -157,7 +157,25 @@ Phases (each failure exits non-zero before the result line):
    MOTA > 0.6, BUSCA MOTA >= base, no identity switch; K1 counted) and
    ``train_aflink_synthetic(steps=150, batch=64)`` (accuracy > 0.8, the
    linker merges a split trajectory), with their seconds;
-15. the ``kernels`` JSON line, then the result line
+15. frozen-stats ReID (``reid_stats='frozen'|'auto'``; run after phase 13):
+   (a) the full-width engine from ``build_engine(reid_stats=...)`` in
+   float32 (TF32 off) and bf16, its running statistics calibrated by
+   ``calibrate_batch_stats`` on K1 crops of phase 8's crowd, at phase 4's
+   shape (T=16, D=30, +16 Kalman): crops encoded per call (warm: none),
+   warm equal to cold exactly, a 2-slot host cache, a small bank and the
+   host cache against the default bank within 1e-6 in float32
+   (busca_tpu's bars), card against CPU within 1e-3; batch mode against
+   frozen cold, warm and next frame, and auto, in host ms and device busy;
+   (b) auto's crossover: the fused forward against the cached path at
+   T in 1..64, D=30, device ms (``AUTO_FUSED_MAX_T`` stays 1); (c) phase
+   7's YOLOX-X loop with BUSCA bf16 frozen against batch mode in ms/frame,
+   phase 12's sequences in lockstep with frozen (each equal to its own
+   frozen loop, ids relabelled, tlwh within 0.1 px), the lockstep server
+   with frozen and a stream snapshotted and restored, K1 counted in each;
+   (d) the ``frozen_delta`` (in-domain and the ``dim`` shift) and
+   ``memcap_delta`` CLIs at their defaults, in two processes side by side;
+   (e) ``--det-ap``'s COCO table over the frozen loop's detections;
+16. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -343,6 +361,14 @@ TR_GRAD_RTOL, TR_GRAD_ATOL = 2e-4, 1e-6
 TR_PERTURBATIONS = 4
 TR_RESUME_K = 2
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# Phase 15: frozen-stats ReID.  The frozen engines' running statistics are
+# calibrated on K1 crops of these crowd frames (phase 8's, ~96 boxes each);
+# busca_tpu's cache bars (tests/test_engine_frozen.py) on float32
+# probabilities; auto's crossover is measured at these track counts.
+FZ_CALIB_FRAMES = (0, 10, 20)
+FZ_PROB_TOL = 1e-6
+FZ_CROSSOVER_T = (1, 2, 4, 8, 16, 32, 64)
+FZ_STUDY_TIMEOUT_S = 600
 
 
 class PhaseError(RuntimeError):
@@ -4326,6 +4352,442 @@ def phase_training(device, crowd):
     return {"train_episodes": k1_train, "trained_rescue": k1_rescue}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: frozen-stats ReID (reid_stats='frozen'|'auto').
+
+
+def frozen_engines(device, crowd):
+    """The full-width frozen engines (float32 and bf16 ``frozen``, bf16
+    ``auto``) from ``build_engine`` with seed 0 (phase 4's weights), their
+    running statistics calibrated by ``calibrate_batch_stats`` on crops K1
+    cuts from phase 8's crowd (the float32 model's batch statistics, loaded
+    into all three)."""
+    import numpy as np
+
+    from busca_tpu_torch.eval.frozen_delta import calibrate_batch_stats
+    from busca_tpu_torch.eval.run import build_engine
+    from busca_tpu_torch.trackers.base import device_crops
+
+    engines = {}
+    for tag, dtype, mode in (("fz32", "float32", "frozen"),
+                             ("fz16", "bfloat16", "frozen"),
+                             ("auto16", "bfloat16", "auto")):
+        engines[tag], _ = build_engine(device=device, crop_hw=CROP_HW,
+                                       seed=0, dtype=dtype, reid_stats=mode)
+        check(engines[tag].bank is None and engines[tag]._feat_bank,
+              f"{tag}: a crop bank beside the feature bank")
+    _, frames, dets, _ = crowd
+    fz32 = engines["fz32"]
+    batches = [fz32._prep(device_crops(frames[t], dets[t][0], CROP_HW,
+                                       device), True)
+               for t in FZ_CALIB_FRAMES]
+    t0 = time.perf_counter()
+    stats = calibrate_batch_stats(fz32.model, batches)
+    for eng in engines.values():
+        buffers = dict(eng.model.named_buffers())
+        for k, v in stats.items():
+            buffers[k].copy_(v)
+    var = np.concatenate([v.cpu().numpy() for k, v in stats.items()
+                          if k.endswith("running_var")])
+    print(f"frozen engines: running statistics of {len(stats) // 2} BNs "
+          f"calibrated on {sum(len(b) for b in batches)} crowd crops in "
+          f"{time.perf_counter() - t0:.2f} s (running_var "
+          f"{var.min():.3g}..{var.max():.3g})")
+    return engines
+
+
+def count_encodes(engine):
+    """Counts the crops each ``_encode_scatter`` call encodes into the
+    returned list, padding rows (written to the scratch slot 0) left
+    out."""
+    calls = []
+    inner = engine._encode_scatter
+
+    def counted(crops, slots, *a):
+        calls.append(int((slots != 0).sum()))
+        return inner(crops, slots, *a)
+
+    engine._encode_scatter = counted
+    return calls
+
+
+def fresh_candidates(request):
+    """The request with new uids on its detection and Kalman crops: the
+    next frame's candidates, the memories still cached."""
+    import numpy as np
+
+    from busca_tpu_torch.assoc.bank import next_uid, tag
+
+    tracks, dets, kals = request
+    for t in list(dets) + list(kals):
+        t.images_mem[-1] = tag(np.asarray(t.images_mem[-1]), next_uid())
+    return request
+
+
+def host_and_device_ms(fn, prepare=None):
+    """(median host ms of 5 synchronized calls, device busy ms per call):
+    ``prepare()`` runs before each call, outside the timing."""
+    import numpy as np
+    import torch
+
+    prepare = prepare or (lambda: None)
+    prepare()
+    fn()
+    times = []
+    for _ in range(5):
+        prepare()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    def one():
+        prepare()
+        fn()
+
+    return float(np.median(times)), device_busy_ms(one)
+
+
+def frozen_association(engines, engine16, frame):
+    """15a: batch against frozen cold, warm and next-frame, and auto, host
+    and device ms at phase 4's shape; encodes per call; busca_tpu's cache
+    bars in float32; card against CPU."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.assoc.engine import AssociationEngine
+
+    n_tracks, n_dets = 16, 30
+    fz32, fz16, auto16 = (engines[k] for k in ("fz32", "fz16", "auto16"))
+    req = {tag: association_request(eng, np.random.RandomState(3), frame,
+                                    n_tracks, n_dets)
+           for tag, eng in engines.items()}
+    batch_req = association_request(engine16, np.random.RandomState(3),
+                                    frame, n_tracks, n_dets)
+    prepped = engine16._prep_request(batch_req[0], batch_req[1],
+                                     extra_kalman_candidates=batch_req[2])
+    # batch mode encodes every memory crop and the unique candidates (and
+    # the zero crop) on every call
+    n_batch = n_tracks * engine16.seq_len + 1 + len(
+        {d for row in prepped[3] for d in row if d is not None})
+
+    def call(eng, request):
+        tracks, dets, kals = request
+        return eng.associate(tracks, dets, extra_kalman_candidates=kals,
+                             select_highest_candidate=False)[0]
+
+    # warmth: cold (empty bank) against warm, exactly, and encodes per call
+    for tag in ("fz32", "fz16"):
+        eng = engines[tag]
+        calls = count_encodes(eng)
+        eng._reset_bank()
+        cold = call(eng, req[tag])
+        n_cold = list(calls)
+        warm = call(eng, req[tag])
+        n_warm = calls[len(n_cold):]
+        check(not n_warm, f"{tag}: the warm call encoded {n_warm}")
+        check(np.array_equal(cold, warm), f"{tag}: warm differs from cold "
+              f"by {np.abs(cold - warm).max()}")
+        fresh_candidates(req[tag])
+        call(eng, req[tag])
+        n_next = calls[len(n_cold):]
+        del eng._encode_scatter
+        print(f"frozen {eng.config.dtype}: crops encoded per call: cold "
+              f"{n_cold} (T={n_tracks} x {eng.seq_len} memories, the unique "
+              f"candidates and the zero crop), warm {n_warm or [0]}, next "
+              f"frame (new detection and Kalman crops) {n_next}, against "
+              f"{n_batch} in batch mode; warm equals cold exactly")
+
+    # busca_tpu's cache bars (tests/test_engine_frozen.py), float32
+    def twin(**kw):
+        return AssociationEngine(fz32.config, fz32.model,
+                                 seq_len=fz32.seq_len, crop_hw=CROP_HW,
+                                 reid_stats="frozen", **kw)
+
+    fz32._reset_bank()
+    want = call(fz32, req["fz32"])
+    other = association_request(fz32, np.random.RandomState(4), frame,
+                                n_tracks, n_dets)
+    want_other = call(fz32, other)
+    gaps = {}
+    host = twin(feat_bank=False)
+    gaps["host cache vs bank"] = max(
+        np.abs(call(host, r) - w).max()
+        for r, w in ((req["fz32"], want), (other, want_other),
+                     (req["fz32"], want)))
+    tiny = twin(feat_bank=False, feat_cache_slots=2)
+    gaps["2-slot host cache"] = max(np.abs(call(tiny, req["fz32"]) - want)
+                                    .max() for _ in range(2))
+    distinct = n_tracks * fz32.seq_len + n_dets + n_tracks + 1
+    small = twin(feat_cache_slots=distinct + 8)
+    gaps[f"{distinct + 8}-slot bank"] = max(
+        np.abs(call(small, r) - w).max()
+        for r, w in ((req["fz32"], want), (other, want_other)) * 2)
+    for label, gap in gaps.items():
+        print(f"frozen float32 {label} against the default bank: max "
+              f"|dp| {gap:.3g} (bar {FZ_PROB_TOL})")
+        check(gap <= FZ_PROB_TOL, f"frozen {label} differs by {gap}")
+    # one crop's feature in batches of 8 and of 256
+    crops = np.stack([t.images_mem[0] for t in req["fz32"][0][:8]])
+    big = np.concatenate([crops, np.zeros((248,) + crops.shape[1:],
+                                          np.uint8)])
+    feat_gap = float((fz32._encode(crops, True)
+                      - fz32._encode(big, True)[:8]).abs().max())
+    print(f"frozen float32 features of 8 crops encoded alone and in a "
+          f"batch of 256: max |diff| {feat_gap:.3g}")
+
+    # card against the CPU (phase 4's bound, float32)
+    cpu_model = type(fz32.model)(fz32.model.config)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               fz32.model.state_dict().items()})
+    cpu = AssociationEngine(fz32.config, cpu_model.eval(),
+                            seq_len=fz32.seq_len, crop_hw=CROP_HW,
+                            reid_stats="frozen")
+    tracks, dets, kals = req["fz32"]
+    small_req = (tracks[:2], dets[:5], kals[:2])
+    err = float(np.abs(call(fz32, small_req) - call(cpu, small_req)).max())
+    print(f"frozen card vs CPU probabilities (float32, T=2, D=5): max|diff| "
+          f"{err:.3g} (tol {PROB_TOL})")
+    check(err <= PROB_TOL, f"frozen card and CPU disagree: {err}")
+
+    # times: host clock and device busy, phase 4's shape
+    rows = [("batch bf16", engine16, batch_req, None)]
+    for tag, label in (("fz16", "bf16"), ("fz32", "float32")):
+        eng = engines[tag]
+        rows += [(f"frozen {label} cold", eng, req[tag], eng._reset_bank),
+                 (f"frozen {label} warm", eng, req[tag], None),
+                 (f"frozen {label} next frame", eng, req[tag],
+                  lambda r=req[tag]: fresh_candidates(r))]
+    rows.append(("auto bf16 next frame", auto16, req["auto16"],
+                 lambda: fresh_candidates(req["auto16"])))
+    times = {}
+    for label, eng, request, prep in rows:
+        times[label] = host_and_device_ms(lambda: call(eng, request), prep)
+        print(f"association {label} T={n_tracks} D={n_dets} (+{n_tracks} "
+              f"Kalman): {times[label][0]:.2f} ms host (median of 5), "
+              f"device busy {times[label][1]:.2f} ms")
+    torch.cuda.synchronize()
+    return times
+
+
+def frozen_crossover(engines, frame):
+    """15b: auto's crossover on the card: the fused forward against the
+    cached path (memories cached, new candidate crops each call), device
+    ms per call at D=30, bf16."""
+    import numpy as np
+
+    from busca_tpu_torch.assoc.engine import AssociationEngine
+
+    fz16 = engines["fz16"]
+    fused_eng = AssociationEngine(fz16.config, fz16.model,
+                                  seq_len=fz16.seq_len, crop_hw=CROP_HW,
+                                  reid_stats="auto",
+                                  auto_fused_max_t=10 ** 6)
+    rows = []
+    for t in FZ_CROSSOVER_T:
+        request = association_request(fz16, np.random.RandomState(t), frame,
+                                      t, 30)
+        tracks, dets, kals = request
+
+        def call(eng):
+            return eng.associate(tracks, dets, extra_kalman_candidates=kals)
+
+        fused = host_and_device_ms(lambda: call(fused_eng))[1]
+        cached = host_and_device_ms(lambda: call(fz16),
+                                    lambda: fresh_candidates(request))[1]
+        rows.append((t, fused, cached))
+        print(f"auto crossover T={t} D=30 (bf16): fused {fused:.2f} ms, "
+              f"cached {cached:.2f} ms device per call")
+    fused_wins = [t for t, f, c in rows if f < c]
+    crossover = max(fused_wins) if fused_wins else 0
+    print(f"auto crossover on the card: the fused forward wins at T <= "
+          f"{crossover} (fused wins at {fused_wins}); AUTO_FUSED_MAX_T "
+          f"stays 1 in code")
+    return crossover
+
+
+def frozen_loops(det, engines, engine16, lockstep):
+    """15c and 15e: phase 7's YOLOX-X loop with BUSCA bf16 frozen against
+    batch mode; phase 12's sequences in lockstep with frozen, each equal to
+    its own frozen loop; the lockstep server with frozen, a stream
+    snapshotted and restored; the detection AP of the loop's detections.
+    Returns K1's launches per loop."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.eval.detection import (
+        coco_eval_full,
+        format_coco_table,
+    )
+    from busca_tpu_torch.eval.detector import (
+        track_frames_with_detector,
+        track_sequences_lockstep,
+    )
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.trackers.base import Track
+
+    fz16 = engines["fz16"]
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    frames = yolox_frames(YX_FRAMES)
+    k1 = {}
+    batch = yolox_loop(det, engine16, frames)
+    Track.reset_id_counter()
+    det_log = []
+    crop_resize_cuda.launches = 0
+    frozen = track_frames_with_detector(
+        det, make_tracker("byte", kwargs, fz16, CROP_HW), frames,
+        name="yolox", det_log=det_log)
+    torch.cuda.synchronize()
+    k1["yolox_frozen_loop"] = crop_resize_cuda.launches
+    (b_ms, b_det, b_trk), (f_ms, f_det, f_trk) = (loop_split(batch),
+                                                  loop_split(frozen))
+    print(f"YOLOX-X loop, BUSCA bf16, {YX_FRAMES} frames: frozen "
+          f"{f_ms:.2f} ms/frame (detector {f_det:.2f}, tracker {f_trk:.2f}) "
+          f"against batch mode {b_ms:.2f} (detector {b_det:.2f}, tracker "
+          f"{b_trk:.2f}); K1 launches {k1['yolox_frozen_loop']}")
+    check(sum(len(r[2]) for r in frozen.results) > 0,
+          "the frozen loop output no track")
+    check(k1["yolox_frozen_loop"] > 0, "the frozen loop never launched K1")
+
+    # 15e: the 12-number COCO table of the loop's raw detections
+    base = default_dropout_sequence(40)
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    gt = seq.ground_truth()
+    dets = {("yolox", fid): (boxes, scores)
+            for fid, boxes, scores in det_log}
+    gts = {}
+    for fid in range(1, YX_FRAMES + 1):
+        tlwh = gt.get(fid, (np.zeros((0, 4)),))[0].copy()
+        tlwh[:, 2:] += tlwh[:, :2]
+        gts[("yolox", fid)] = tlwh
+    t0 = time.perf_counter()
+    stats = coco_eval_full(dets, gts)
+    print(f"--det-ap over phase 7's detections ({len(dets)} frames, "
+          f"{sum(len(b) for b, _ in dets.values())} detections) against the "
+          f"sequence's gt ({time.perf_counter() - t0:.3f} s):")
+    print(format_coco_table(stats))
+    check(all(np.isfinite(v) for v in stats.values()), "non-finite AP")
+
+    # lockstep with frozen: each sequence equals its own frozen loop
+    seqs = lockstep["seqs"]
+    names = [f"seed{s}" for s in LS_SEEDS]
+    solos = []
+    for frames_i, name in zip(seqs, names):
+        Track.reset_id_counter()
+        solos.append(track_frames_with_detector(
+            det, make_tracker("byte", kwargs, fz16, CROP_HW), frames_i,
+            name=name))
+    Track.reset_id_counter()
+    crop_resize_cuda.launches = 0
+    lock = track_sequences_lockstep(
+        det, [make_tracker("byte", kwargs, fz16, CROP_HW) for _ in seqs],
+        [iter(f) for f in seqs], names=names)
+    torch.cuda.synchronize()
+    k1["yolox_frozen_lockstep"] = crop_resize_cuda.launches
+    worst = max(relabelled_gap(
+        f"frozen lockstep {res.name}",
+        [(f, t, ids) for f, t, ids, _ in res.results],
+        [(f, t, ids) for f, t, ids, _ in solo.results])
+        for res, solo in zip(lock, solos))
+    check(worst <= LS_BOX_PX, f"frozen lockstep is off by {worst} px")
+    total = sum(r.num_frames for r in lock)
+    lock_ms = sum(r.track_time_s for r in lock) * 1e3 / total
+    solo_ms = sum(r.track_time_s for r in solos) * 1e3 / total
+    print(f"frozen lockstep ({len(seqs)} sequences, {total} sequence-frames):"
+          f" each equals its own frozen loop (ids relabelled, tlwh max "
+          f"|diff| {worst:.3g} px); {lock_ms:.2f} ms per sequence-frame "
+          f"against {solo_ms:.2f} one by one (batch mode, phase 12: "
+          f"{lockstep['lock_ms']:.2f}); K1 launches "
+          f"{k1['yolox_frozen_lockstep']}")
+
+    # the lockstep server with frozen; stream 0 snapshotted and restored
+    def factory():
+        return make_tracker("byte", kwargs, fz16, CROP_HW)
+
+    Track.reset_id_counter()
+    crop_resize_cuda.launches = 0
+    replies, ticks, wall_s, _, blob = serve_lockstep(det, factory, seqs,
+                                                     snapshot_stream=0)
+    k1["server_frozen_lockstep"] = crop_resize_cuda.launches
+    gap = max(relabelled_gap(
+        f"frozen lockstep server stream {i}", reply_rows(got),
+        [(f, t, ids) for f, t, ids, _ in solo.results])
+        for i, (got, solo) in enumerate(zip(replies, solos)))
+    check(gap <= LS_BOX_PX, f"the frozen lockstep server is off by {gap} px")
+    print(f"frozen lockstep server: {len(seqs)} streams, stream 0 "
+          f"snapshotted after frame {SL_CUT} ({blob} bytes) and restored: "
+          f"every stream equals its own frozen loop (tlwh max |diff| "
+          f"{gap:.3g} px); {wall_s * 1e3 / total:.2f} ms per sequence-frame;"
+          f" K1 launches {k1['server_frozen_lockstep']}")
+    return k1
+
+
+def frozen_deviation_studies():
+    """15d: the deviation studies' CLIs at their defaults on the card,
+    ``python -m busca_tpu_torch.eval.frozen_delta --shift dim`` (in-domain
+    and the ``dim`` arm on one trained model) and ``python -m
+    busca_tpu_torch.eval.memcap_delta``, in two processes side by side:
+    both are bound by the host (cv2's ECC of the trackers' camera-motion
+    compensation), not by the card.  Their reports and seconds are
+    printed; a failure or a run past FZ_STUDY_TIMEOUT_S fails the phase,
+    and no process outlives it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"frozen_delta": ["--shift", "dim"], "memcap_delta": []}
+    t0 = time.perf_counter()
+    # the host's cores split between the two; cv2's ECC on one thread
+    # each (faster than on all cores there: tools/study_host_cost.py)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(os.cpu_count() // 2, 1)),
+               OPENCV_FOR_THREADS_NUM="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"busca_tpu_torch.eval.{name}", *args],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, args in runs.items()}
+    try:
+        for name, proc in procs.items():
+            left = FZ_STUDY_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                out, _ = proc.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                check(False, f"{name} ran past {FZ_STUDY_TIMEOUT_S} s")
+            for line in out.splitlines():
+                if not line.startswith("{"):  # the JSON record repeats it
+                    print(f"{name}: {line}")
+            print(f"{name}: exit {proc.returncode} after "
+                  f"{time.perf_counter() - t0:.2f} s")
+            check(proc.returncode == 0, f"{name} failed")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_frozen(device, engine16, det, lockstep, crowd):
+    """Phase 15: frozen-stats ReID on the card.  Returns K1's launches per
+    frozen loop."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    engines = frozen_engines(device, crowd)
+    rng = np.random.RandomState(2)
+    frame = rng.randint(0, 256, FRAME_HW + (3,), dtype=np.uint8)
+    frozen_association(engines, engine16, frame)
+    frozen_crossover(engines, frame)
+    k1 = frozen_loops(det, engines, engine16, lockstep)
+    frozen_deviation_studies()
+    print(f"phase 15: {time.perf_counter() - t0:.2f} s")
+    return k1
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4381,6 +4843,7 @@ def main() -> int:
         k1_lockstep, lockstep = phase_lockstep(device, engine, engine16,
                                                yolox)
         k1_serving = phase_serving(yolox, engine16, lockstep, served_ms)
+        k1_frozen = phase_frozen(device, engine16, yolox, lockstep, crowd)
         del yolox, tc32, centertrack, lockstep
         t_phase = time.perf_counter()
         k1_deformable = phase_deformable(device, engine16)
@@ -4407,6 +4870,7 @@ def main() -> int:
                               "transcenter_deformable_loop": k1_deformable,
                               "yolox_lockstep": k1_lockstep,
                               **k1_serving,
+                              **k1_frozen,
                               **k1_training}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}

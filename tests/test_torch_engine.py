@@ -113,11 +113,29 @@ def test_associate_without_kalman_and_empty(shared):
 
 
 def test_engine_raises_for_unported_modes(shared):
+    """The debug montage (item 25) is still refused, naming its item.
+    ``reid_stats='frozen'`` and ``'auto'`` are ported (items 7 and 24,
+    tests/test_torch_engine_frozen.py): a frozen-BN model with the same
+    weights scores through them, a batch-statistics one is refused."""
     _, _, model = shared
-    for kw in (dict(reid_stats="frozen"), dict(reid_stats="auto"),
-               dict(debug_dir="/nonexistent")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            AssociationEngine(BuscaConfig(**SMALL), model, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        AssociationEngine(BuscaConfig(**SMALL), model,
+                          debug_dir="/nonexistent")
+    frozen = BuscaModel(BuscaConfig(reid_use_batch_stats=False, **SMALL))
+    frozen.load_state_dict(model.state_dict())
+    tracks, dets, kals = _scene(0)
+    for mode in ("frozen", "auto"):
+        with pytest.raises(ValueError, match="batch_stats"):
+            AssociationEngine(BuscaConfig(**SMALL), model, reid_stats=mode)
+        eng = AssociationEngine(BuscaConfig(**SMALL), frozen,
+                                seq_len=SEQ_LEN, num_candidates=NUM_CAN,
+                                crop_hw=(H, W), buckets=BUCKETS,
+                                reid_stats=mode)
+        probs, rel = eng.associate(tracks, dets,
+                                   extra_kalman_candidates=kals,
+                                   select_highest_candidate=False)
+        assert probs.shape == (3, 4 + 3) and np.isfinite(probs).all()
+        assert rel.tolist() == [True, True, False]
     # associate_many is ported (lockstep): no request and empty requests
     # give nothing to score
     eng = AssociationEngine(BuscaConfig(**SMALL), model, crop_hw=(H, W))

@@ -191,10 +191,12 @@ def test_lockstep_refusals(two_sequences, capsys):
         assert "--lockstep needs" in capsys.readouterr().err
 
 
-def test_reid_stats_batch_accepted_and_later_modes_refused(capsys):
+def test_reid_stats_batch_accepted_and_later_modes_refused(
+        artifacts, monkeypatch, capsys):  # noqa: F811
     """``--reid-stats batch`` (busca_tpu's default) is accepted and runs as
-    the default does; ``frozen`` and ``auto`` name ROADMAP items 7 and 24,
-    ``--lockstep-dp`` item 23."""
+    the default does; ``frozen`` and ``auto`` (ported with items 7 and 24)
+    build a frozen engine and run BUSCA to the report; ``--lockstep-dp``
+    still names item 23."""
     argv = ["--synthetic", "--num-frames", "12", "--tracker", "sort",
             "--device", "cpu"]
     out = []
@@ -204,9 +206,23 @@ def test_reid_stats_batch_accepted_and_later_modes_refused(capsys):
         res["base"].pop("fps")
         out.append(res)
     assert out[0] == out[1]
-    for extra, item in ((["--reid-stats", "frozen"], "items 7 and 24"),
-                        (["--reid-stats", "auto"], "items 7 and 24"),
-                        (["--lockstep-dp", "2"], "item 23")):
-        with pytest.raises(SystemExit):
-            trun.main(argv + extra)
-        assert item in capsys.readouterr().err
+    built = []
+    real_build = trun.build_engine
+
+    def spy(*a, **kw):
+        built.append(real_build(*a, **kw)[0])
+        return built[-1], {}
+
+    monkeypatch.setattr(trun, "build_engine", spy)
+    busca = ["--synthetic", "--num-frames", "12", "--tracker", "byte",
+             "--use-busca", "--busca-config", artifacts["cfg"],
+             "--busca-ckpt", artifacts["busca"], "--crop-h",
+             str(CROP_HW[0]), "--crop-w", str(CROP_HW[1]), "--device", "cpu"]
+    for mode in ("frozen", "auto"):
+        _reset_torch_ids()
+        res = trun.main(busca + ["--reid-stats", mode])
+        assert built[-1].reid_stats == mode and built[-1].bank is None
+        assert np.isfinite(res["busca"]["mota"])
+    with pytest.raises(SystemExit):
+        trun.main(argv + ["--lockstep-dp", "2"])
+    assert "item 23" in capsys.readouterr().err

@@ -6,8 +6,8 @@ seeded cost matrices through the assignment solvers.
 Both packages run the same float64 numpy code on the same inputs, so every
 field must be equal exactly.  The detection-AP cases of the reference (the
 recall-threshold linspace quirk and seed 3001468) go through CLEAR and HOTA
-here, each image a frame and each box its own id: the port's COCO evaluator
-(``eval/detection.py``) is ROADMAP item 24.
+here, each image a frame and each box its own id; the port's COCO evaluator
+(``eval/detection.py``) is held in tests/test_torch_detection.py.
 """
 
 import numpy as np

@@ -528,9 +528,10 @@ def test_build_tracker_runtime_unpacks_engine(monkeypatch):
 
     def fake_build_engine(config, ckpt=None, device="cuda",
                           crop_hw=(384, 128), bank_slots=None, seed=0,
-                          dtype=None):
+                          dtype=None, reid_stats="batch"):
         seen.update(config=config, ckpt=ckpt, device=device,
-                    crop_hw=crop_hw, seed=seed, dtype=dtype)
+                    crop_hw=crop_hw, seed=seed, dtype=dtype,
+                    reid_stats=reid_stats)
         return sentinel, {"seq_len": 7, "busca_thresh": 0.4,
                           "track_thresh": 0.9}
 
@@ -542,7 +543,8 @@ def test_build_tracker_runtime_unpacks_engine(monkeypatch):
     engine, factory = build_tracker_runtime(args)
     assert engine is sentinel
     assert seen == {"config": "cfg.yml", "ckpt": None, "device": "cpu",
-                    "crop_hw": (64, 32), "seed": 3, "dtype": "float32"}
+                    "crop_hw": (64, 32), "seed": 3, "dtype": "float32",
+                    "reid_stats": "batch"}
     trk = factory()
     assert trk.engine is sentinel
     assert trk.cfg.use_busca is True
@@ -616,8 +618,6 @@ def test_serve_cli_defaults_match_eval():
 
 @pytest.mark.parametrize("argv,item", [
     (["--lockstep-dp", "2"], "item 23"),
-    (["--reid-stats", "frozen"], "items 7 and 24"),
-    (["--reid-stats", "auto"], "items 7 and 24"),
 ])
 def test_serve_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as e:
@@ -626,6 +626,30 @@ def test_serve_cli_refuses_unported_flags(argv, item, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP.md Queue 1 {item}" in err
+
+
+@pytest.mark.parametrize("mode", ["frozen", "auto"])
+def test_serve_cli_hands_reid_stats_to_build_engine(mode, monkeypatch):
+    """``--reid-stats frozen|auto`` (ported with items 7 and 24) reaches
+    ``build_engine`` through the server CLI, as busca_tpu's does
+    (tests/test_server.py's runtime wiring test)."""
+    import busca_tpu_torch.eval.run as run_mod
+
+    seen = {}
+
+    def fake_build_engine(config, ckpt, **kw):
+        seen.update(kw, config=config)
+        return None, {}
+
+    monkeypatch.setattr(run_mod, "build_engine", fake_build_engine)
+    monkeypatch.setattr(TrackingServer, "serve_unix",
+                        lambda self, *a, **k: None)
+    server_mod.main(["--socket", "/tmp/x.sock", "--detector", "yolox-tiny",
+                     "--test-h", "64", "--test-w", "128", "--use-busca",
+                     "--busca-config", "cfg.yml", "--reid-stats", mode,
+                     "--device", "cpu"])
+    assert seen["reid_stats"] == mode and seen["config"] == "cfg.yml"
+    assert seen["device"] == "cpu" and seen["dtype"] == "bfloat16"
 
 
 def _served(argv, monkeypatch):

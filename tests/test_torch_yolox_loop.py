@@ -290,20 +290,31 @@ def test_mot_dir_cli_matches_jax(mot_sequence, engines, tmp_path):
             assert a[k] == b[k], k
 
 
-def test_cli_refuses_flags_of_later_items(mot_sequence, capsys):
+def test_cli_refuses_flags_of_later_items(mot_sequence, tmp_path, capsys,
+                                         monkeypatch):
     from busca_tpu_torch.eval import run as trun
 
     # --lockstep and --mem-cap are ported (tests/test_torch_lockstep*.py);
     # the modes of later items are refused, naming them
     base = ["--mot-dir", mot_sequence, "--device", "cpu"]
-    for argv, item in ((["--reid-stats", "frozen"], "items 7 and 24"),
-                       (["--reid-stats", "auto"], "items 7 and 24"),
-                       (["--detector", "yolox-tiny", "--lockstep",
+    for argv, item in ((["--detector", "yolox-tiny", "--lockstep",
                          "--lockstep-dp", "2"], "item 23"),
                        (["--online-visualization"], "item 25")):
         with pytest.raises(SystemExit):
             trun.main(base + argv)
         assert item in capsys.readouterr().err
+    # --reid-stats frozen|auto are ported (items 7 and 24): the live-
+    # detector run hands them to build_engine and runs to its report
+    seen = []
+    monkeypatch.setattr(trun, "build_engine",
+                        lambda *a, **kw: seen.append(kw) or (None, {}))
+    for mode in ("frozen", "auto"):
+        trun.main(base + ["--detector", "yolox-tiny", "--test-h", "64",
+                          "--test-w", "96", "--max-frames", "2",
+                          "--use-busca", "--reid-stats", mode,
+                          "--output-dir", str(tmp_path / mode)])
+        assert seen[-1]["reid_stats"] == mode
+        assert os.path.exists(tmp_path / mode / "MOT17-05-FRCNN.txt")
 
 
 # bf16.  A random tiny YOLOX cannot be held frame by frame in bf16: its
