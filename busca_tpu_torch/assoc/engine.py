@@ -35,7 +35,14 @@ across frames by crop uid, in a ``[cap, F]`` float32 feature bank on the
 engine's device (``feat_bank=True``) or on the host.  A third round then
 encodes only the frame's new crops.  ``'auto'`` has the same numbers and
 scores calls of at most ``auto_fused_max_t`` tracks in one fused forward.
-The debug montage is not ported yet (ROADMAP.md Queue 1, item 25).
+
+``debug_dir`` writes the decision montage of each scored call (the
+reference's visualization, network.py:234-242): the tracks' memory crops
+beside their candidate crops with the predicted probabilities, as
+``<debug_dir>/decision_%06d.jpg`` (``viz/draw.py::create_batch_image``).
+The montage needs every candidate crop of the call on the host, so with it
+a call takes the duplicated-candidate path (no dedup, no crop bank), as in
+busca_tpu; frozen modes refuse it.
 """
 
 from __future__ import annotations
@@ -66,7 +73,6 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 # crossover.  Frozen BN numerics either way.
 AUTO_FUSED_MAX_T = 1
 INCOMPLETE_MEM_BBOX_TLWH = np.array([250.0, 250.0, 500.0, 500.0])
-_NOT_PORTED = "not ported yet (ROADMAP.md Queue 1, {}): {}"
 
 
 def _get_track_mem(track, seq_len: int, use_broader_memory: bool):
@@ -157,9 +163,6 @@ class AssociationEngine:
                                  f"reid_stats={reid_stats!r} (use the "
                                  "default batch mode)")
             config = dataclasses.replace(config, reid_use_batch_stats=False)
-        if debug_dir is not None:
-            raise NotImplementedError(
-                _NOT_PORTED.format("item 25", "debug montage"))
         if bank is not None and tuple(bank.crop_hw) != tuple(crop_hw):
             raise ValueError("bank crop_hw mismatch")
         if model.config.dtype != config.dtype:
@@ -180,6 +183,8 @@ class AssociationEngine:
         # unique crop with multiplicity-weighted BN statistics (numerics
         # equal to the duplicated batch).
         self.dedup_candidates = dedup_candidates
+        self.debug_dir = debug_dir
+        self._debug_count = 0
         self._mean = torch.tensor(INPUT_PIXEL_MEAN_BGR.tolist(),
                                   device=self.device)
         self._std = torch.tensor(INPUT_PIXEL_STD_BGR.tolist(),
@@ -207,9 +212,10 @@ class AssociationEngine:
     @property
     def banked(self) -> bool:
         """Whether scoring ships crop-bank slot indices instead of pixels.
-        Frozen modes ship features, never pixels."""
+        Frozen modes ship features, never pixels; the debug montage needs
+        the pixels on the host."""
         return (self.bank is not None and self.dedup_candidates
-                and self.reid_stats == "batch")
+                and self.debug_dir is None and self.reid_stats == "batch")
 
     @property
     def _keep_mem_lists(self) -> bool:
@@ -341,11 +347,13 @@ class AssociationEngine:
             return self._associate_many_frozen(preps, results,
                                                normalize_ims, post_kw)
         if (self.reid_stats == "auto" or len(preps) == 1
-                or t_total > self.buckets[-1] or not self.dedup_candidates):
+                or t_total > self.buckets[-1] or not self.dedup_candidates
+                or self.debug_dir is not None):
             # a tiny auto batch (fused per request, as _score_prepped
             # routes it), one live request, a batch above the largest
-            # bucket, or the duplicated path: the prepped requests one by
-            # one (busca_tpu/assoc/engine.py:636-654)
+            # bucket, or the duplicated path (also the montage's): the
+            # prepped requests one by one
+            # (busca_tpu/assoc/engine.py:636-654)
             for i, req, ndt in preps:
                 probs = self._score_prepped(req, normalize_ims)
                 (_, _, reliable, det_inds, _, _, num_avail, _, _) = req
@@ -479,7 +487,7 @@ class AssociationEngine:
                 mem_crops, det_inds, unit_crop, mem_boxes, can_boxes,
                 normalize_ims,
             )
-        if self.dedup_candidates:
+        if self.dedup_candidates and self.debug_dir is None:
             return self._score_bucketed_unique(
                 mem_crops, det_inds, unit_crop, mem_boxes, can_boxes,
                 normalize_ims,
@@ -491,9 +499,29 @@ class AssociationEngine:
             for ci, di in enumerate(det_inds[ti]):
                 if di is not None:
                     can_crops[ti, ci] = unit_crop(di)
-        return self._score_bucketed(
+        probs = self._score_bucketed(
             mem_crops, can_crops, mem_boxes, can_boxes, normalize_ims
         )
+        if self.debug_dir is not None:
+            self._write_debug_montage(mem_crops, can_crops, probs)
+        return probs
+
+    def _write_debug_montage(self, mem_crops, can_crops, probs):
+        """The decision montage of this call as
+        ``<debug_dir>/decision_%06d.jpg`` (network.py:234-242,
+        visualization.py ``create_batch_image``)."""
+        import os
+
+        import cv2
+
+        from busca_tpu_torch.viz import create_batch_image
+
+        montage = create_batch_image(mem_crops, can_crops, probs)
+        os.makedirs(self.debug_dir, exist_ok=True)
+        cv2.imwrite(os.path.join(self.debug_dir,
+                                 f"decision_{self._debug_count:06d}.jpg"),
+                    montage)
+        self._debug_count += 1
 
     def _prep_request(
         self,

@@ -2,8 +2,8 @@
 bookkeeping (port of ``busca_tpu.core.hostmath``).
 
 The matrices are tiny (tens of tracks), so this stays on the host CPU.  The
-constants of ``busca_tpu.core.kalman`` are carried here, because that module
-imports jax.
+gating and noise constants come from :mod:`busca_tpu_torch.core.kalman`,
+the batched device filter, as busca_tpu's come from its ``core.kalman``.
 """
 
 from __future__ import annotations
@@ -12,20 +12,11 @@ from typing import Tuple
 
 import numpy as np
 
-# 0.95 quantile of the chi-square distribution (gating thresholds), N dof.
-CHI2INV95 = {
-    1: 3.8415,
-    2: 5.9915,
-    3: 7.8147,
-    4: 9.4877,
-    5: 11.070,
-    6: 12.592,
-    7: 14.067,
-    8: 15.507,
-    9: 16.919,
-}
-STD_WEIGHT_POSITION = 1.0 / 20
-STD_WEIGHT_VELOCITY = 1.0 / 160
+from busca_tpu_torch.core.kalman import (
+    CHI2INV95,
+    STD_WEIGHT_POSITION,
+    STD_WEIGHT_VELOCITY,
+)
 
 __all__ = [
     "iou_matrix",

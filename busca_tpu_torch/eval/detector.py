@@ -38,6 +38,13 @@ same-resolution sequences (one pinned upload, K1 letterboxes each frame
 into its slice of one canvas batch, one forward, the postprocess per
 frame), and :func:`track_sequences_lockstep` drives B trackers with it,
 their BUSCA third rounds served by one grouped association per frame.
+:meth:`YoloxDetector.shard_lockstep` splits that batch over several
+devices of the process (busca_tpu's dp-sharded lockstep): a replica of the
+detector on each, each letterboxing and detecting its own frames, the
+outputs gathered at fetch.
+
+``viz_dir`` in the loops writes each frame with its tracks as a JPEG
+(``eval/runner.py::write_viz_frame``), busca_tpu's online visualization.
 """
 
 from __future__ import annotations
@@ -179,6 +186,16 @@ class _Pending:
     scale: float
     pred: torch.Tensor  # the decoded rows, for a frame whose NMS needs more
     held: tuple
+
+
+@dataclasses.dataclass
+class _ShardedPending:
+    """A batch step split over the replicas of
+    :meth:`YoloxDetector.shard_lockstep`: each replica's handle, and the
+    number of frames asked for (the rest are the padding's)."""
+
+    parts: list
+    frames: int
 
 
 class PipelinedFrameIO:
@@ -339,10 +356,45 @@ class YoloxDetector(PipelinedFrameIO):
         self._boxes = {}
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self._shards = None
 
     @property
     def num_classes(self) -> int:
         return self.config.num_classes
+
+    def _replica(self, device) -> "YoloxDetector":
+        """This detector with a copy of its model on ``device``."""
+        import copy
+
+        device = torch.device(device)
+        rep = copy.copy(self)
+        rep.device = device
+        rep.model = copy.deepcopy(self.model).to(device)
+        rep._mean = self._mean.to(device)
+        rep._std = self._std.to(device)
+        rep._boxes = {}
+        rep._copy_stream = (torch.cuda.Stream(device)
+                            if device.type == "cuda" else None)
+        rep._shards = None
+        return rep
+
+    def shard_lockstep(self, devices) -> "YoloxDetector":
+        """Split the lockstep batch over ``devices`` (``parallel/mesh.py::
+        local_devices``), busca_tpu's dp-sharded lockstep: one replica of
+        the detector per device (this detector where a device is its own),
+        each frame detected on the device of its slice of the batch (K1
+        letterboxes it there), no collective in the step, the outputs
+        gathered in :meth:`wait_batch`.  A batch that does not split
+        evenly is padded with its last frame, whose outputs are dropped.
+        Per frame the numbers are those of the unsplit step.  Returns
+        self."""
+        devices = [torch.device(d) for d in devices]
+        if not devices:
+            raise ValueError("shard_lockstep needs at least one device")
+        self._shards = [self if i == 0 and d == self.device
+                        else self._replica(d)
+                        for i, d in enumerate(devices)]
+        return self
 
     @classmethod
     def build(cls, size: str = "x", ckpt_path: Optional[str] = None,
@@ -454,6 +506,11 @@ class YoloxDetector(PipelinedFrameIO):
         handle for :meth:`wait_batch`.  The frames go up as one pinned
         upload on the copy stream.  On the card nothing here waits for the
         device."""
+        if self._shards is not None:
+            return self._sharded_batch_async(frames_bgr)
+        return self._batch_async(frames_bgr)
+
+    def _batch_async(self, frames_bgr) -> _Pending:
         frames, stream = self._readable(frames_bgr)
         rows, valid, converged, preds, canvases, r = self.batch_step(
             frames.tensor)
@@ -461,9 +518,50 @@ class YoloxDetector(PipelinedFrameIO):
         return _Pending(*host, done, canvases, r, preds,
                         (frames, rows, valid, converged))
 
+    def _sharded_batch_async(self, frames_bgr) -> _ShardedPending:
+        """:meth:`detect_batch_async` over the replicas: the batch padded
+        to a multiple of their count with its last frame, each replica's
+        slice enqueued on its device (a host slice uploaded there)."""
+        if isinstance(frames_bgr, _Upload):
+            frames_bgr = frames_bgr.tensor
+        frames = (frames_bgr if torch.is_tensor(frames_bgr)
+                  else np.asarray(frames_bgr))
+        b, n = frames.shape[0], len(self._shards)
+        pad = (-b) % n
+        if pad:
+            last = frames[-1:]
+            frames = (torch.cat([frames] + [last] * pad)
+                      if torch.is_tensor(frames)
+                      else np.concatenate([frames] + [last] * pad))
+        k = frames.shape[0] // n
+        parts = []
+        for i, rep in enumerate(self._shards):
+            part = frames[i * k:(i + 1) * k]
+            if rep.device.type == "cuda":
+                # K1's ctypes launch runs on the thread's current device
+                with torch.cuda.device(rep.device):
+                    parts.append(rep._batch_async(part))
+            else:
+                parts.append(rep._batch_async(part))
+        return _ShardedPending(parts, b)
+
+    def wait_batch(self, handle) -> list:
+        """:meth:`PipelinedFrameIO.wait_batch`, and for a sharded handle
+        every replica's outputs in batch order, the padding's dropped."""
+        if not isinstance(handle, _ShardedPending):
+            return super().wait_batch(handle)
+        outs = []
+        for rep, part in zip(self._shards, handle.parts):
+            outs.extend(PipelinedFrameIO.wait_batch(rep, part))
+            if rep is not self:
+                self.nms_fallbacks += rep.nms_fallbacks
+                rep.nms_fallbacks = 0
+        return outs[:handle.frames]
+
     def detect_batch(self, frames_bgr) -> list:
         """One frame of each of B same-resolution sequences in one device
-        step; one :class:`DetectorOutput` per frame."""
+        step (one per replica after :meth:`shard_lockstep`); one
+        :class:`DetectorOutput` per frame."""
         return self.wait_batch(self.detect_batch_async(frames_bgr))
 
 
@@ -701,9 +799,11 @@ def track_frames_with_detector(
     min_box_area: float = 100.0,
     vertical_thresh: Optional[float] = 1.6,
     det_log: Optional[list] = None,
+    viz_dir: Optional[str] = None,
 ):
     """Drive detector + tracker over raw frames (the reference's eval loop,
-    mot_evaluator.py:131-235).
+    mot_evaluator.py:131-235).  ``viz_dir``: each frame's detector canvas
+    with the tracks drawn at its scale, written there as a JPEG.
 
     The tracker gets the detections mapped back to original coordinates plus
     the detector-resolution canvas for BUSCA crops.  A detector with
@@ -724,6 +824,7 @@ def track_frames_with_detector(
     from busca_tpu_torch.eval.runner import (
         SequenceResult,
         filter_output_tracks,
+        write_viz_frame,
     )
 
     feedback = getattr(detector, "uses_feedback", False) and hasattr(
@@ -773,6 +874,11 @@ def track_frames_with_detector(
             online, min_box_area, vertical_thresh
         )
         results.append((idx + 1, tlwhs, ids, confs))
+        if viz_dir is not None:
+            # the detector-resolution canvas is the frame the loop holds;
+            # the tlwh are original coordinates
+            write_viz_frame(viz_dir, idx + 1, det.image, tlwhs, ids,
+                            scale=det.scale)
     dt = time.perf_counter() - t0
     return SequenceResult(
         name, len(results), results, dt,
@@ -787,9 +893,12 @@ def track_sequences_lockstep(
     names=None,
     min_box_area: float = 100.0,
     vertical_thresh: Optional[float] = 1.6,
+    viz_dirs=None,
 ):
     """Track B same-resolution sequences in lockstep, one frame of each per
-    detector call (busca_tpu's multi-sequence throughput mode).
+    detector call (busca_tpu's multi-sequence throughput mode).  ``viz_dirs``:
+    None, or one online-visualization directory (or None) per sequence,
+    where each of its frames' canvases is written with its tracks.
 
     The batch of lockstep frame t+1 is enqueued
     (``detector.detect_batch_async``) before frame t's results are read, so
@@ -810,6 +919,7 @@ def track_sequences_lockstep(
     from busca_tpu_torch.eval.runner import (
         SequenceResult,
         filter_output_tracks,
+        write_viz_frame,
     )
     from busca_tpu_torch.trackers.base import service_deferred_updates
 
@@ -884,6 +994,10 @@ def track_sequences_lockstep(
                 tlwhs, ids, confs = filter_output_tracks(
                     onlines[i], min_box_area, vertical_thresh)
                 results[i].append((frame_ids[i], tlwhs, ids, confs))
+                if viz_dirs is not None and viz_dirs[i] is not None:
+                    write_viz_frame(viz_dirs[i], frame_ids[i],
+                                    dets[i].image, tlwhs, ids,
+                                    scale=dets[i].scale)
         trk_s += time.perf_counter() - t_trk
     dt = time.perf_counter() - t0
     total = max(sum(len(r) for r in results), 1)
@@ -1159,14 +1273,16 @@ class CenterTrackRunnerDetector:
 
 
 def track_frames_centertrack(detector: CenterTrackDetector, adapter, frames,
-                             name: str = "seq"):
+                             name: str = "seq",
+                             viz_dir: Optional[str] = None):
     """CenterTrack's per-frame loop: detector dicts -> ``adapter.step`` with
     the device canvas for BUSCA crops (detector.py:143-156), the prior
-    heatmap from the adapter's current tracks.  Returns a
+    heatmap from the adapter's current tracks.  ``viz_dir``: each frame
+    with its tracks written there as a JPEG.  Returns a
     :class:`~busca_tpu_torch.eval.runner.SequenceResult` whose
     ``stage_times`` split the wall time into ``detector_s`` and
     ``tracker_s``."""
-    from busca_tpu_torch.eval.runner import SequenceResult
+    from busca_tpu_torch.eval.runner import SequenceResult, write_viz_frame
 
     results = []
     det_s = trk_s = 0.0
@@ -1185,6 +1301,8 @@ def track_frames_centertrack(detector: CenterTrackDetector, adapter, frames,
             ids.append(d["tracking_id"])
             confs.append(d["score"])
         results.append((idx + 1, tlwhs, ids, confs))
+        if viz_dir is not None:
+            write_viz_frame(viz_dir, idx + 1, frame, tlwhs, ids)
     dt = time.perf_counter() - t0
     return SequenceResult(name, len(results), results, dt,
                           stage_times={"detector_s": det_s,

@@ -442,11 +442,12 @@ def postprocess_result(res, out_path, link_model=None, gsi=False):
                           res.track_time_s)
 
 
-# flags of busca_tpu's CLI whose code is not ported yet, and the ROADMAP.md
-# Queue 1 item that ports it
-LATER_FLAGS = {
-    "online_visualization": 25,
-}
+def viz_dir_for(args, name: str):
+    """A sequence's online-visualization directory,
+    ``<output-dir>/<seq>_viz`` (None without ``--online-visualization``)."""
+    if not args.online_visualization:
+        return None
+    return os.path.join(args.output_dir, f"{name}_viz")
 
 
 def build_detector(args):
@@ -530,7 +531,8 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
             res = run_cached_sequence(
                 seq_dir, det_file, tracker,
                 min_confidence=args.min_confidence, ecc_warps=ecc,
-                output_file=out_path, max_frames=args.max_frames)
+                output_file=out_path, max_frames=args.max_frames,
+                viz_dir=viz_dir_for(args, name))
         elif detector is not None:
             from busca_tpu_torch.eval.detector import (
                 track_frames_centertrack,
@@ -545,15 +547,17 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
             if args.max_frames:
                 frames = itertools.islice(frames, args.max_frames)
             if args.detector == "centertrack":
-                res = track_frames_centertrack(detector, tracker, frames,
-                                               name=info.name)
+                res = track_frames_centertrack(
+                    detector, tracker, frames, name=info.name,
+                    viz_dir=viz_dir_for(args, name))
             else:
                 seq_det_log = [] if args.det_ap else None
                 res = track_frames_with_detector(
                     detector, shim_for_runner(args.tracker, tracker,
                                               feature_extractor,
                                               args.crop_hw),
-                    frames, name=info.name, det_log=seq_det_log)
+                    frames, name=info.name, det_log=seq_det_log,
+                    viz_dir=viz_dir_for(args, name))
                 for fid, boxes, scores in seq_det_log or ():
                     det_ap_dets[(name, fid)] = (boxes, scores)
             mot.write_results(out_path, res.results)
@@ -561,7 +565,8 @@ def run_mot(args, detector, engine, tracker_kwargs, feature_extractor=None,
             res = run_mot_sequence(
                 seq_dir, shim_for_runner(args.tracker, tracker,
                                          feature_extractor, args.crop_hw),
-                output_path=out_path, max_frames=args.max_frames)
+                output_path=out_path, max_frames=args.max_frames,
+                viz_dir=viz_dir_for(args, name))
         report_sequence(args, seq_dir, res, out_path, link_model,
                         eval_inputs)
         if args.det_ap and name in eval_inputs:
@@ -666,7 +671,8 @@ def run_lockstep(args, detector, engine, tracker_kwargs,
                                  args.crop_hw) for _ in specs]
         results = run_cached_sequences_lockstep(
             specs, trackers, min_confidence=args.min_confidence,
-            max_frames=args.max_frames)
+            max_frames=args.max_frames,
+            viz_dirs=[viz_dir_for(args, n) for n in names])
     elif detector is None:
         from busca_tpu_torch.eval.runner import run_mot_sequences_lockstep
 
@@ -676,8 +682,12 @@ def run_lockstep(args, detector, engine, tracker_kwargs,
                          seq_tracker_kwargs(args, tracker_kwargs, name),
                          engine, args.crop_hw, feature_extractor),
             feature_extractor, args.crop_hw) for name in names]
-        results = run_mot_sequences_lockstep(dirs, trackers,
-                                             max_frames=args.max_frames)
+        # a viz_dir_fn makes every sequence decode its frames: None
+        # without --online-visualization keeps pixel-free trackers' skip
+        results = run_mot_sequences_lockstep(
+            dirs, trackers, max_frames=args.max_frames,
+            viz_dir_fn=((lambda n: viz_dir_for(args, n))
+                        if args.online_visualization else None))
     else:
         import itertools
 
@@ -706,7 +716,8 @@ def run_lockstep(args, detector, engine, tracker_kwargs,
                 frame_iters.append(frames)
             outs = track_sequences_lockstep(
                 detector, trackers, frame_iters,
-                names=[infos[d].name for d in group])
+                names=[infos[d].name for d in group],
+                viz_dirs=[viz_dir_for(args, infos[d].name) for d in group])
             for d, res in zip(group, outs):
                 by_dir[d] = res
                 notes[d] = f" (lockstep group of {len(group)} at {h}x{w})"
@@ -764,8 +775,11 @@ def main(argv=None):
                              "BUSCA third round (also over det.txt and "
                              "--npy-det)")
     parser.add_argument("--lockstep-dp", type=int, default=0,
-                        help="shard the lockstep batch over this many "
-                             "devices; refused when non-zero")
+                        help="split the lockstep batch of a live yolox "
+                             "--detector over this many devices of the "
+                             "process (cuda:0..N-1; one replica of the "
+                             "detector each, no steady-state collective); "
+                             "needs --lockstep")
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--num-frames", type=int, default=40)
     parser.add_argument("--crop-h", type=int, default=384)
@@ -818,6 +832,11 @@ def main(argv=None):
                              "CenterTrack's and TransCenter's out_thresh")
     parser.add_argument("--det-nms", type=float, default=0.7,
                         help="exp.nmsthre")
+    parser.add_argument("--online-visualization", action="store_true",
+                        help="write each frame with its tracks drawn (the "
+                             "headless form of the reference's live "
+                             "display, byte_tracker.py:535-572) to "
+                             "<output-dir>/<seq>_viz/")
     parser.add_argument("--det-ap", action="store_true",
                         help="print the 12-number COCO detection-AP table of "
                              "the raw detector output vs MOT gt "
@@ -852,24 +871,31 @@ def main(argv=None):
                              "model of a busca_tpu AFLink params .npz, or "
                              "'synthetic' to train one on synthetic "
                              "trajectories first")
-    for flag in LATER_FLAGS:
-        parser.add_argument("--" + flag.replace("_", "-"), default=None,
-                            nargs="?", const=True)
     args = parser.parse_args(argv)
     args.crop_hw = (args.crop_h, args.crop_w)
-    for flag, item in LATER_FLAGS.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet "
-                         f"(ROADMAP.md Queue 1 item {item})")
     if args.detector == "centertrack" and args.tracker != "centertrack":
         parser.error("--detector centertrack needs --tracker centertrack "
                      "(dict IO)")
     if args.detector_artifact and args.detector:
         parser.error("--detector-artifact replaces --detector")
     if args.lockstep_dp:
-        parser.error("--lockstep-dp (the lockstep batch sharded over "
-                     "devices) is not ported yet (ROADMAP.md Queue 1 item "
-                     "23)")
+        # busca_tpu's rules (busca_tpu/eval/run.py:799-802, 843-849); a
+        # run without a live yolox detector has no batch to split, which
+        # busca_tpu ignores and the port refuses
+        if not args.lockstep:
+            parser.error("--lockstep-dp requires --lockstep")
+        if args.detector_artifact:
+            parser.error("--lockstep-dp needs a live --detector (an "
+                         "artifact's programs hold one device)")
+        if args.detector in (None, "transcenter", "centertrack"):
+            parser.error("--lockstep-dp splits a live yolox --detector's "
+                         "lockstep batch")
+        from busca_tpu_torch.parallel.mesh import local_devices
+
+        try:
+            lockstep_devices = local_devices(args.lockstep_dp, args.device)
+        except ValueError as e:
+            parser.error(str(e))
     if args.mem_cap is not None:
         if args.tracker not in MEM_CAP_TRACKERS:
             parser.error(f"--mem-cap only applies to trackers that store "
@@ -926,6 +952,8 @@ def main(argv=None):
                                                   args.device)
             elif args.detector:
                 detector = build_detector(args)
+                if args.lockstep_dp:
+                    detector.shard_lockstep(lockstep_devices)
         except ValueError as e:
             parser.error(str(e))
         feature_extractor = link_model = None

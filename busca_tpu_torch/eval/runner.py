@@ -1,11 +1,16 @@
-"""Sequence runner and evaluation harness (port of ``busca_tpu.eval.runner``
-in one process): drive one tracker over a sequence, filter its output like
-the reference MOT evaluator, evaluate it, the cached-detection MOTChallenge
-mode (``det/det.txt``) alone or over several sequences in lockstep, the
-base-vs-BUSCA A/B, and metric aggregation over sequences.
+"""Sequence runner and evaluation harness (port of ``busca_tpu.eval.runner``):
+drive one tracker over a sequence, filter its output like the reference MOT
+evaluator, evaluate it, the cached-detection MOTChallenge mode
+(``det/det.txt``) alone or over several sequences in lockstep, the
+base-vs-BUSCA A/B, the online visualization (annotated frames written as
+JPEGs), and metric aggregation over sequences and processes.
 
-Not here: the multi-process sharding and tally allgather (ROADMAP.md item
-23) and the visualization (item 25).
+Distribution (SURVEY.md §2.5): tracking is embarrassingly parallel per
+sequence, so sequences are split over processes (``shard_sequences`` with
+the rank and world size of ``torch.distributed``), each runs its share, and
+the metrics' additive tallies are summed with one ``all_reduce``
+(``global_metrics``), the reference's rank-0 gather (mot_evaluator.py:
+244-248).
 """
 
 from __future__ import annotations
@@ -55,6 +60,26 @@ def filter_output_tracks(online, min_box_area=100.0, vertical_thresh=1.6):
     return tlwhs, ids, confs
 
 
+def write_viz_frame(viz_dir, frame_idx, frame, tlwhs, ids, scale=1.0):
+    """The online visualization's frame (the headless form of the
+    reference's live display, byte_tracker.py:535-572): the tracked boxes
+    and ids drawn on the frame, written as ``<viz_dir>/<frame:06d>.jpg``.
+    ``frame``: uint8 BGR, a host array or a tensor (copied to the host);
+    ``scale`` maps the tlwh boxes (original coordinates) onto it."""
+    import cv2
+
+    from busca_tpu_torch.viz import plot_box
+
+    if hasattr(frame, "cpu"):
+        frame = frame.cpu().numpy()
+    canvas = np.ascontiguousarray(frame).copy()
+    for tlwh, tid in zip(tlwhs, ids):
+        x, y, w, h = [v * scale for v in tlwh]
+        plot_box(canvas, tid, [x, y, x + w, y + h], display_id=True)
+    os.makedirs(viz_dir, exist_ok=True)
+    cv2.imwrite(os.path.join(viz_dir, f"{frame_idx:06d}.jpg"), canvas)
+
+
 def run_sequence(
     tracker,
     frames: Iterable[Optional[np.ndarray]],
@@ -63,6 +88,7 @@ def run_sequence(
     scale: float = 1.0,
     min_box_area: float = 100.0,
     vertical_thresh: Optional[float] = 1.6,
+    viz_dir: Optional[str] = None,
 ) -> SequenceResult:
     """Drive one tracker instance over a sequence.
 
@@ -70,6 +96,8 @@ def run_sequence(
       tracker: object with ``update(bboxes_tlbr, scores, scale, frame)``.
       frames: per-frame images (uint8 BGR) or None (cached detections).
       detections: per-frame (tlbr [N, 4], scores [N]).
+      viz_dir: the online visualization: each frame with its tracks is
+        written as ``<viz_dir>/<frame:06d>.jpg`` (:func:`write_viz_frame`).
     """
     results = []
     t0 = time.perf_counter()
@@ -79,6 +107,8 @@ def run_sequence(
             online, min_box_area, vertical_thresh
         )
         results.append((idx + 1, tlwhs, ids, confs))
+        if viz_dir is not None and frame is not None:
+            write_viz_frame(viz_dir, idx + 1, frame, tlwhs, ids)
     dt = time.perf_counter() - t0
     return SequenceResult(name, len(results), results, dt)
 
@@ -90,6 +120,7 @@ def run_mot_sequences_lockstep(
     min_box_area: float = 100.0,
     vertical_thresh: Optional[float] = 1.6,
     max_frames: Optional[int] = None,
+    viz_dir_fn=None,
 ) -> List[SequenceResult]:
     """Several cached-detection MOTChallenge sequences frame by frame in
     step, every sequence's BUSCA third round served by one grouped
@@ -97,7 +128,8 @@ def run_mot_sequences_lockstep(
     groups keep each sequence's numbers equal to its own run).  The
     cached-detection path is busca_tpu's canonical slice (BASELINE.json
     config 1); this is its multi-sequence throughput mode.  Frames are
-    decoded with cv2, and only for the trackers that read pixels."""
+    decoded with cv2, and only for the trackers that read pixels or the
+    sequences ``viz_dir_fn(name)`` gives a visualization directory."""
     import cv2
 
     from busca_tpu_torch.trackers.base import service_deferred_updates
@@ -115,7 +147,9 @@ def run_mot_sequences_lockstep(
         getattr(t, "use_busca", False)
         or getattr(getattr(t, "trk", None), "use_busca", False)
         or getattr(t, "feat_fn", None) is not None
-        for t in trackers
+        or (viz_dir_fn is not None
+            and viz_dir_fn(infos[i].name) is not None)
+        for i, t in enumerate(trackers)
     ]
     t0 = time.perf_counter()
     step = 0
@@ -150,6 +184,10 @@ def run_mot_sequences_lockstep(
             tlwhs, ids, confs = filter_output_tracks(
                 onlines[i], min_box_area, vertical_thresh)
             results[i].append((frame_id, tlwhs, ids, confs))
+            if viz_dir_fn is not None and frames_now[i] is not None:
+                vd = viz_dir_fn(infos[i].name)
+                if vd:
+                    write_viz_frame(vd, frame_id, frames_now[i], tlwhs, ids)
         step += 1
     dt = time.perf_counter() - t0
     total = max(sum(len(r) for r in results), 1)
@@ -204,6 +242,7 @@ def run_mot_sequence(
     det_path: Optional[str] = None,
     output_path: Optional[str] = None,
     max_frames: Optional[int] = None,
+    viz_dir: Optional[str] = None,
 ) -> SequenceResult:
     """Run a tracker over an on-disk MOTChallenge sequence with its public
     detections (``det/det.txt``, or ``det_path``): the cached-detection
@@ -225,10 +264,19 @@ def run_mot_sequence(
         dets_by_frame.get(f, (np.zeros((0, 4)), np.zeros(0)))
         for f in range(1, n + 1)
     ]
-    result = run_sequence(tracker, frames(), detections, name=info.name)
+    result = run_sequence(tracker, frames(), detections, name=info.name,
+                          viz_dir=viz_dir)
     if output_path:
         mot.write_results(output_path, result.results)
     return result
+
+
+def shard_sequences(names: Sequence[str], process_index: int,
+                    process_count: int) -> List[str]:
+    """Static sharding of sequences over processes (evaluation's dp):
+    every ``process_count``-th name from ``process_index``."""
+    return [n for i, n in enumerate(names)
+            if i % process_count == process_index]
 
 
 def _eval_one(args):
@@ -308,13 +356,46 @@ def tally_to_metrics(t: np.ndarray) -> metrics_lib.MotMetrics:
     )
 
 
+def _all_reduce_f64(t: np.ndarray, group=None) -> np.ndarray:
+    """``t`` (float64) summed over ``group`` (default: every rank) by one
+    ``all_reduce``: on the current card for NCCL, on the CPU for gloo.
+    Both reduce float64 exactly as float64, so the sums need no (hi, lo)
+    split (busca_tpu ships one because its device arrays are float32)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.from_numpy(np.ascontiguousarray(t, np.float64))
+    if dist.get_backend(group) == "nccl":
+        x = x.to(torch.device("cuda", torch.cuda.current_device()))
+    dist.all_reduce(x, group=group)
+    return x.cpu().numpy()
+
+
+def psum_tallies(tallies: np.ndarray, mesh, axis: str = "dp") -> np.ndarray:
+    """This rank's tally rows ``[n, TALLY_DIM]`` summed, then summed over
+    the mesh's ``axis`` (``parallel/mesh.py``): the collective reduction of
+    per-shard tallies, in float64 (busca_tpu's runs in float32 on its
+    devices)."""
+    local = np.asarray(tallies, np.float64).reshape(-1, _TALLY_DIM).sum(0)
+    return _all_reduce_f64(local, mesh.get_group(axis))
+
+
 def global_metrics(
-    per_seq: Dict[str, metrics_lib.MotMetrics],
+    per_seq: Dict[str, metrics_lib.MotMetrics], group=None,
 ) -> metrics_lib.MotMetrics:
-    """Aggregate metrics over the sequences of this process: the summed
-    tallies back to metrics (equal to ``metrics.accumulate``).  The
-    multi-process allgather of busca_tpu's version is ROADMAP.md item 23."""
+    """Aggregate metrics over every process of a job: each process sums
+    its sequences' tallies (``shard_sequences``), and the sums are summed
+    over the processes with one float64 ``all_reduce`` when ``group`` is
+    given or a default group of more than one rank is initialized (the
+    reference's rank-0 gather + reduce, mot_evaluator.py:244-248).
+    Otherwise the local sum (equal to ``metrics.accumulate``)."""
     local = np.zeros(_TALLY_DIM, np.float64)
     for m in per_seq.values():
         local += metrics_to_tally(m)
-    return tally_to_metrics(local)
+    if group is None:
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return tally_to_metrics(local)
+    return tally_to_metrics(_all_reduce_f64(local, group))

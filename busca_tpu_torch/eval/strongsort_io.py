@@ -147,10 +147,13 @@ def run_cached_sequence(
     load_images: bool = True,
     output_file: Optional[str] = None,
     max_frames: Optional[int] = None,
+    viz_dir: Optional[str] = None,
 ):
     """The full deep_sort_app frame loop against a StrongSortTracker
     (deep_sort_app.py:130-224): cached detections+features, NMS, optional
-    ECC camera update, predict/update, confirmed-track output rows.
+    ECC camera update, predict/update, confirmed-track output rows;
+    ``viz_dir``: each read frame with its tracks written there as a JPEG
+    (``eval/runner.py::write_viz_frame``).
 
     Returns the MOTChallenge-style result rows
     ``(frame, tlwhs, ids, scores)`` per frame (same shape the MOT writer and
@@ -158,7 +161,7 @@ def run_cached_sequence(
     """
     import time
 
-    from busca_tpu_torch.eval.runner import SequenceResult
+    from busca_tpu_torch.eval.runner import SequenceResult, write_viz_frame
 
     seq_info = gather_sequence_info(sequence_dir, detection_file)
     lo, hi = seq_info["min_frame_idx"], seq_info["max_frame_idx"]
@@ -184,6 +187,8 @@ def run_cached_sequence(
             ids.append(t.track_id)
             confs.append(t.score)
         results.append((frame_idx, tlwhs, ids, confs))
+        if viz_dir is not None and frame is not None:
+            write_viz_frame(viz_dir, frame_idx, frame, tlwhs, ids)
     dt = time.perf_counter() - t0
 
     res = SequenceResult(
@@ -232,6 +237,7 @@ def run_cached_sequences_lockstep(
     min_detection_height: float = 0,
     load_images: bool = True,
     max_frames: Optional[int] = None,
+    viz_dirs=None,
 ):
     """Several cached-artifact sequences frame by frame in step, every
     sequence's BUSCA third round served by one grouped association per frame
@@ -241,12 +247,14 @@ def run_cached_sequences_lockstep(
     Args:
       specs: ``(sequence_dir, detection_file, ecc_warps_or_None)`` each.
       trackers: one StrongSortTracker per spec.
+      viz_dirs: None, or one online-visualization directory (or None) per
+        spec.
     Returns one SequenceResult per spec, each with its share of the wall
     time.
     """
     import time
 
-    from busca_tpu_torch.eval.runner import SequenceResult
+    from busca_tpu_torch.eval.runner import SequenceResult, write_viz_frame
     from busca_tpu_torch.trackers.base import service_deferred_updates
 
     infos = [gather_sequence_info(d, f) for d, f, _ in specs]
@@ -262,12 +270,13 @@ def run_cached_sequences_lockstep(
                 if fi <= hi]
         if not live:
             break
-        onlines, pending = {}, []
+        onlines, pending, frames = {}, [], {}
         for i in live:
             tlbr, conf, feats, frame = _frame_inputs(
                 infos[i], frame_idxs[i], min_confidence, nms_max_overlap,
                 min_detection_height, load_images,
             )
+            frames[i] = frame
             warps = specs[i][2]
             if warps is not None:
                 m = ecc_matrix_for_frame(warps, frame_idxs[i])
@@ -283,9 +292,14 @@ def run_cached_sequences_lockstep(
             onlines.update(service_deferred_updates(pending))
         for i in live:
             online = onlines[i]
-            results[i].append((frame_idxs[i], [t.tlwh for t in online],
-                               [t.track_id for t in online],
+            tlwhs = [t.tlwh for t in online]
+            ids = [t.track_id for t in online]
+            results[i].append((frame_idxs[i], tlwhs, ids,
                                [t.score for t in online]))
+            if (viz_dirs is not None and viz_dirs[i] is not None
+                    and frames[i] is not None):
+                write_viz_frame(viz_dirs[i], frame_idxs[i], frames[i],
+                                tlwhs, ids)
         step += 1
     dt = time.perf_counter() - t0
     total = max(sum(len(r) for r in results), 1)

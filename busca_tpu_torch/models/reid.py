@@ -60,6 +60,14 @@ class BatchNorm(nn.Module):
     appends its ``(count, sum_x, sum_x2)`` over the weighted samples
     (busca_tpu's ``bn_calib`` collection, ``_sow_calib``); set by
     :func:`collect_bn_calibration`.
+
+    ``dp_group``: None (the default: statistics of this process's batch),
+    or the dp ``ProcessGroup`` of a sharded model (``parallel/mesh.py::
+    shard_model``): the masked sums (count, sum x, sum x^2) are summed over
+    it, with their gradient, before the statistics are taken, so a batch
+    split over dp is normalized with the global batch's statistics, as
+    under busca_tpu's GSPMD.  The weight and bias may be a rank's block of
+    channels (tp), and so may the input.
     """
 
     def __init__(self, features: int, eps: float = 1e-5,
@@ -74,11 +82,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
         self.calib = None
+        self.dp_group = None
 
     def _affine(self, x, mean, inv):
         """``(x - mean) * inv * weight + bias`` with ``mean``/``inv`` either
         ``[C]`` or ``[N, C]``."""
-        shape = (-1, self.features) + (1,) * (x.dim() - 2)
+        shape = (-1, x.shape[1]) + (1,) * (x.dim() - 2)
         lead = x.shape[0] if mean.dim() == 2 else 1
         mean = mean.reshape((lead,) + shape[1:])
         inv = inv.reshape((lead,) + shape[1:])
@@ -90,17 +99,39 @@ class BatchNorm(nn.Module):
         self.calib.append(tuple(t.detach().to("cpu", torch.float64)
                                 for t in (count, sum_x, sum_x2)))
 
+    def _global(self, *sums):
+        """``sums`` summed over the dp group (one collective for all of
+        them), or as they are without one."""
+        if self.dp_group is None:
+            return sums
+        from busca_tpu_torch.parallel.collectives import all_reduce_sum
+
+        flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]),
+                              self.dp_group)
+        return tuple(t.reshape(s.shape) for t, s in zip(
+            flat.split([s.numel() for s in sums]), sums))
+
     def forward(self, x: torch.Tensor,
                 sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.to(torch.float32)
         if not self.use_batch_stats:
             mean, var = self.running_mean, self.running_var
+        elif sample_mask is None and self.dp_group is not None:
+            axes = (0,) + tuple(range(2, x.dim()))
+            n = torch.full((1,), float(x.numel() // x.shape[1]),
+                           device=x.device)
+            n, s1, s2 = self._global(n, xf.sum(dim=axes),
+                                     (xf * xf).sum(dim=axes))
+            mean = s1 / n
+            var = s2 / n - mean * mean
+            if self.calib is not None:
+                self._record(n[0], s1, s2)
         elif sample_mask is None:
             axes = (0,) + tuple(range(2, x.dim()))
             mean = xf.mean(dim=axes)
             var = (xf * xf).mean(dim=axes) - mean * mean
             if self.calib is not None:  # busca_tpu/models/reid.py:109-112
-                n = float(x.numel() // self.features)
+                n = float(x.numel() // x.shape[1])
                 self._record(torch.full((), n), mean * n,
                              (var + mean * mean) * n)
         else:
@@ -115,21 +146,25 @@ class BatchNorm(nn.Module):
                 s1, s2 = xf, xf * xf
             w = sample_mask.to(torch.float32)
             if w.dim() == 1:
-                denom = torch.clamp(w.sum() * spatial, min=1.0)
-                mean = (w @ s1) / denom
-                var = (w @ s2) / denom - mean * mean
+                cnt, t1, t2 = self._global(w.sum(), w @ s1, w @ s2)
+                denom = torch.clamp(cnt * spatial, min=1.0)
+                mean = t1 / denom
+                var = t2 / denom - mean * mean
                 if self.calib is not None:
-                    self._record(w.sum() * spatial, w @ s1, w @ s2)
+                    self._record(cnt * spatial, t1, t2)
             else:
-                denom_g = torch.clamp(w.sum(0) * spatial, min=1.0)  # [G]
-                mean_g = (w.t() @ s1) / denom_g[:, None]  # [G, C]
-                ex2_g = (w.t() @ s2) / denom_g[:, None]
+                cnt_g, t1_g, t2_g = self._global(w.sum(0), w.t() @ s1,
+                                                 w.t() @ s2)
+                denom_g = torch.clamp(cnt_g * spatial, min=1.0)  # [G]
+                mean_g = t1_g / denom_g[:, None]  # [G, C]
+                ex2_g = t2_g / denom_g[:, None]
                 var_g = torch.clamp(ex2_g - mean_g * mean_g, min=0.0)
                 inv_g = torch.reciprocal(torch.sqrt(var_g + self.eps))
                 ids = torch.argmax(w, dim=-1)  # zero rows -> group 0
                 if self.calib is not None:
                     m = w.sum(1)  # a sample's multiplicity
-                    self._record(m.sum() * spatial, m @ s1, m @ s2)
+                    self._record(*self._global(m.sum() * spatial, m @ s1,
+                                               m @ s2))
                 y = self._affine(x, mean_g[ids], inv_g[ids])
                 return y.to(x.dtype)
         var = torch.clamp(var, min=0.0)
@@ -165,6 +200,40 @@ def _conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                   dtype=dtype)
 
 
+class ChannelParallel:
+    """The tp split of the ReID (``parallel/mesh.py::shard_model``): a
+    convolution whose weight holds a block of its output channels computes
+    that block from its whole input, its BN keeps the statistics of those
+    channels (no collective inside the BN), and the blocks are gathered,
+    with their gradient, where a layer needs its whole input.  An
+    activation is a rank's channel block after a split convolution, and
+    whole after a whole one (``cout % tp != 0``)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def whole(self, x: torch.Tensor, channels: int) -> torch.Tensor:
+        """``x`` with all ``channels`` (its blocks gathered)."""
+        if x.shape[1] == channels:
+            return x
+        from busca_tpu_torch.parallel.collectives import gather_channels
+
+        return gather_channels(x, self.group)
+
+    def conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        from busca_tpu_torch.parallel.collectives import copy_to_group
+
+        x = self.whole(x, conv.in_channels)
+        if conv.weight.shape[0] != conv.out_channels:
+            # each rank sees a part of the input's gradient
+            x = copy_to_group(x, self.group)
+        return conv(x)
+
+
+def _apply(conv: nn.Conv2d, x: torch.Tensor, tp: Optional[ChannelParallel]):
+    return conv(x) if tp is None else tp.conv(conv, x)
+
+
 class Bottleneck(nn.Module):
     """torch-style bottleneck: 1x1 -> 3x3(stride) -> 1x1(x4), post-add
     ReLU; ``downsample`` = [conv, bn] (reference keys ``downsample.0/1``)."""
@@ -188,14 +257,14 @@ class Bottleneck(nn.Module):
             if has_downsample else None
         )
 
-    def forward(self, x, sample_mask=None):
-        out = torch.relu(self.bn1(self.conv1(x), sample_mask))
-        out = torch.relu(self.bn2(self.conv2(out), sample_mask))
-        out = self.bn3(self.conv3(out), sample_mask)
+    def forward(self, x, sample_mask=None, tp=None):
+        out = torch.relu(self.bn1(_apply(self.conv1, x, tp), sample_mask))
+        out = torch.relu(self.bn2(_apply(self.conv2, out, tp), sample_mask))
+        out = self.bn3(_apply(self.conv3, out, tp), sample_mask)
         identity = x
         if self.downsample is not None:
             conv, bn = self.downsample
-            identity = bn(conv(x), sample_mask)
+            identity = bn(_apply(conv, x, tp), sample_mask)
         return torch.relu(out + identity)
 
 
@@ -210,6 +279,7 @@ class ReIDResNet(nn.Module):
         super().__init__()
         self.red_factor = red
         self.compute_dtype = dtype
+        self.tp: Optional[ChannelParallel] = None  # set by shard_model
         self.conv1 = _conv(3, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = BatchNorm(64, use_batch_stats=use_batch_stats)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -240,13 +310,16 @@ class ReIDResNet(nn.Module):
         ``[N]`` or ``[N, G]`` BN statistics weights."""
         # busca_tpu/models/reid.py:225: x.astype(dtype) at entry
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous()
-        x = torch.relu(self.bn1(self.conv1(x), sample_mask))
+        tp = self.tp
+        x = torch.relu(self.bn1(_apply(self.conv1, x, tp), sample_mask))
         x = self.maxpool(x)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
-                x = block(x, sample_mask)
+                x = block(x, sample_mask, tp)
         # busca_tpu/models/reid.py:259: the pooled features back to float32
         fc7 = x.amax(dim=(2, 3)).to(torch.float32)  # [N, 2048]
+        if tp is not None:
+            fc7 = tp.whole(fc7, (self.red or self.fc).in_features)
         if self.red is not None:
             fc7 = self.red(fc7)
         logits = self.fc(fc7)

@@ -62,10 +62,25 @@ class TorchLinear(nn.Linear):
         return super().forward(_promoted(x, self.weight))
 
 
+def _row_parallel(linear: nn.Linear, x: torch.Tensor, group):
+    """A row-parallel linear: this rank's input block times its block of
+    the weight's input columns, summed over ``group``, then the whole
+    bias."""
+    from busca_tpu_torch.parallel.collectives import reduce_from_group
+
+    y = nn.functional.linear(_promoted(x, linear.weight), linear.weight)
+    return reduce_from_group(y, group) + linear.bias
+
+
 class MultiHeadSelfAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` (self-attention, batch_first)
     numerics: packed qkv projection, ``1/sqrt(head_dim)`` scaling, per-head
-    attention weights returned."""
+    attention weights returned.
+
+    ``tp``: None, or the tp ``ProcessGroup`` of a sharded model
+    (``parallel/mesh.py::shard_model``): ``in_proj`` then holds this rank's
+    heads' q, k and v rows, ``out_proj.weight`` their input columns, and
+    the returned weights are this rank's heads'."""
 
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
@@ -75,12 +90,17 @@ class MultiHeadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = TorchLinear(d_model, d_model)
         nn.init.xavier_uniform_(self.in_proj_weight)
+        self.tp = None
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         b, l, d = x.shape
-        h = self.nhead
-        head_dim = d // h
+        head_dim = d // self.nhead
+        if self.tp is not None:
+            from busca_tpu_torch.parallel.collectives import copy_to_group
+
+            x = copy_to_group(x, self.tp)
+        h = self.in_proj_weight.shape[0] // (3 * head_dim)  # local heads
         qkv = nn.functional.linear(_promoted(x, self.in_proj_weight),
                                    self.in_proj_weight, self.in_proj_bias)
         q, k, v = qkv.chunk(3, dim=-1)
@@ -97,12 +117,17 @@ class MultiHeadSelfAttention(nn.Module):
         # the weights returned are the ones before dropout, as in flax
         ctx = torch.matmul(
             dropout(weights, self.dropout, self.training, generator), v)
-        ctx = ctx.transpose(1, 2).reshape(b, l, d)
+        ctx = ctx.transpose(1, 2).reshape(b, l, h * head_dim)
+        if self.tp is not None:
+            return _row_parallel(self.out_proj, ctx, self.tp), weights
         return self.out_proj(ctx), weights
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder block (busca/custom_layers.py:30-41)."""
+    """Post-LN encoder block (busca/custom_layers.py:30-41).  ``tp``: as
+    :class:`MultiHeadSelfAttention`'s; ``linear1`` then holds this rank's
+    rows (column parallel) and ``linear2.weight`` its columns (row
+    parallel)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  activation: Optional[Callable] = None,
@@ -116,6 +141,7 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, 1e-5, dtype)
         self.norm2 = LayerNorm(d_model, 1e-5, dtype)
         self.activation = activation if activation is not None else gelu_exact
+        self.tp = None
 
     def forward(self, src: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -125,7 +151,14 @@ class TransformerEncoderLayer(nn.Module):
         attn_out, weights = self.self_attn(src, generator)
         # a bf16 src plus the float32 attention output is float32, as in jnp
         src = self.norm1(src + drop(attn_out))
-        ff = self.linear2(drop(self.activation(self.linear1(src))))
+        if self.tp is not None:
+            from busca_tpu_torch.parallel.collectives import copy_to_group
+
+            inner = self.linear1(copy_to_group(src, self.tp))
+            ff = _row_parallel(self.linear2,
+                               drop(self.activation(inner)), self.tp)
+        else:
+            ff = self.linear2(drop(self.activation(self.linear1(src))))
         src = self.norm2(src + drop(ff))
         return src, weights
 

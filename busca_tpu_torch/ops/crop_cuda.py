@@ -65,14 +65,21 @@ def launch(frame: torch.Tensor, boxes: torch.Tensor, scratch: torch.Tensor,
 
     mean, std = normalization_constants(bgr_input)
     n, oh, ow = out.shape[0], out.shape[1], out.shape[2]
-    err = (library or LIBRARY).load().crop_resize_launch(
-        frame.data_ptr(), frame.shape[0], frame.shape[1],
-        boxes.data_ptr(), n, scratch.data_ptr(),
-        out.data_ptr(), oh, ow,
-        int(quantize_uint8), int(normalize), int(rgb_output == bgr_input),
-        *(float(v) for v in mean), *(float(v) for v in std),
-        torch.cuda.current_stream(frame.device).cuda_stream,
-    )
+    lib = (library or LIBRARY).load()
+    args = (frame.data_ptr(), frame.shape[0], frame.shape[1],
+            boxes.data_ptr(), n, scratch.data_ptr(),
+            out.data_ptr(), oh, ow,
+            int(quantize_uint8), int(normalize), int(rgb_output == bgr_input),
+            *(float(v) for v in mean), *(float(v) for v in std),
+            torch.cuda.current_stream(frame.device).cuda_stream)
+    if frame.device.index == torch.cuda.current_device():
+        err = lib.crop_resize_launch(*args)
+    else:
+        # the launch runs on the thread's current device: a frame on
+        # another card (the dp lockstep's replicas) launches under its own;
+        # the context costs host time, so the common case goes without
+        with torch.cuda.device(frame.device):
+            err = lib.crop_resize_launch(*args)
     if err != 0:
         raise RuntimeError(f"crop_resize kernel launch failed: CUDA error "
                            f"{err}")

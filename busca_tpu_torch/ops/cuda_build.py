@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -18,6 +19,9 @@ import tempfile
 import time
 from typing import Callable, Sequence, Tuple
 
+# the kernels' builds and the exports' traces, at INFO
+# (utils/profiling.py::log_compile_times turns it on)
+COMPILE_LOG = logging.getLogger("busca_tpu_torch.compile")
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -87,7 +91,10 @@ class CudaLibrary:
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-        return time.perf_counter() - t0, proc.stderr.strip()
+        seconds = time.perf_counter() - t0
+        COMPILE_LOG.info("nvcc %s: %.2f s", os.path.basename(self.source),
+                         seconds)
+        return seconds, proc.stderr.strip()
 
     def load(self) -> ctypes.CDLL:
         """The library, built first unless this source already is."""

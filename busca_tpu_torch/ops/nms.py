@@ -23,26 +23,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from busca_tpu_torch.core.boxes import iou_matrix_std
+
 # fixed-point steps of the enqueue-only postprocess: enough for the
 # suppression chains of a MOT frame (a frame that needs more is finished by
 # the caller with :func:`nms`)
 NMS_STEPS = 8
-
-
-def iou_matrix_std(atlbr: torch.Tensor, btlbr: torch.Tensor) -> torch.Tensor:
-    """Pairwise IoU with the standard (no +1) area convention
-    (``torchvision.ops.box_iou``; ``busca_tpu.core.boxes.iou_matrix_std``)."""
-    a = atlbr[:, None, :]
-    b = btlbr[None, :, :]
-    iw = torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0],
-                                                             b[..., 0])
-    ih = torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1],
-                                                             b[..., 1])
-    inter = iw.clamp(min=0.0) * ih.clamp(min=0.0)
-    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
-    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    union = area_a + area_b - inter
-    return torch.where(union > 0.0, inter / union, torch.zeros_like(union))
 
 
 def _suppression(boxes_tlbr, scores, iou_threshold):

@@ -39,9 +39,12 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from busca_tpu_torch.ops.cuda_build import COMPILE_LOG
 
 _FN_FILE = "fn.pt2"
 _MANIFEST_FILE = "manifest.json"
@@ -126,12 +129,15 @@ def _trace(module, args, detector=None):
     if detector is not None:
         saved = detector._boxes, detector.model._grids
         detector._boxes, detector.model._grids = {}, None
+    t0 = time.perf_counter()
     try:
         with torch.no_grad():
             return torch.export.export(module, tuple(args))
     finally:
         if saved is not None:
             detector._boxes, detector.model._grids = saved
+        COMPILE_LOG.info("torch.export %s: %.2f s", type(module).__name__,
+                         time.perf_counter() - t0)
 
 
 def _detector_manifest(detector, kind: str, key, scale: float,

@@ -441,9 +441,6 @@ def load_artifact_detector(artifact_dir: str, device="cuda"):
     return ArtifactDetector(artifact_dir, device=device)
 
 
-# busca_tpu's server flags whose machinery is not ported yet, and the
-# ROADMAP.md Queue 1 item that ports it
-LATER_FLAGS = {"lockstep_dp": "23"}
 DETECTORS = ("yolox-tiny", "yolox-s", "yolox-m", "yolox-l", "yolox-x",
              "transcenter", "centertrack")
 
@@ -526,6 +523,10 @@ def main(argv=None):
                         "of one connection at a time")
     p.add_argument("--tick-timeout", type=float, default=0.010,
                    help="the lockstep straggler wait per tick, seconds")
+    p.add_argument("--lockstep-dp", type=int, default=None,
+                   help="split each tick's batch over this many devices of "
+                        "the process (cuda:0..N-1, one replica of the live "
+                        "yolox --detector each); needs --lockstep")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights of a model without a "
@@ -535,16 +536,9 @@ def main(argv=None):
     # the eval CLI's detector builder reads these; busca_tpu's server has no
     # flags for them
     p.set_defaults(detector_dataset="mot17", det_nms=0.7)
-    for flag in LATER_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       nargs="?", const=True)
     args = p.parse_args(argv)
     args.crop_hw = (args.crop_h, args.crop_w)
 
-    for flag, item in LATER_FLAGS.items():
-        if getattr(args, flag):
-            p.error(f"--{flag.replace('_', '-')} is not ported yet "
-                    f"(ROADMAP.md Queue 1 item {item})")
     if args.use_busca and not args.busca_config:
         p.error("--use-busca requires --busca-config")
     if args.detector is None and not args.detector_artifact:
@@ -555,6 +549,20 @@ def main(argv=None):
                 "per sequence and takes per-frame tracker feedback")
     if args.detector == "centertrack" and args.tracker != "centertrack":
         p.error("--detector centertrack needs --tracker centertrack")
+    lockstep_devices = None
+    if args.lockstep_dp:
+        # busca_tpu's rules (busca_tpu/serve/server.py:605-615)
+        if args.detector_artifact:
+            p.error("--lockstep-dp needs a live --detector (an artifact's "
+                    "programs hold one device)")
+        if not args.lockstep:
+            p.error("--lockstep-dp requires --lockstep")
+        from busca_tpu_torch.parallel.mesh import local_devices
+
+        try:
+            lockstep_devices = local_devices(args.lockstep_dp, args.device)
+        except ValueError as e:
+            p.error(str(e))
 
     from busca_tpu_torch.eval.detector import CenterTrackRunnerDetector
     from busca_tpu_torch.eval.run import build_detector
@@ -577,6 +585,8 @@ def main(argv=None):
             detector = build_detector(args)
             if args.detector == "centertrack":
                 detector = CenterTrackRunnerDetector(detector)
+            if lockstep_devices is not None:
+                detector.shard_lockstep(lockstep_devices)
         _, factory = build_tracker_runtime(args)
     except ValueError as e:
         p.error(str(e))

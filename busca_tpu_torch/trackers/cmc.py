@@ -1,5 +1,5 @@
-"""Camera-motion compensation by ECC image alignment (port of the cv2 path
-of ``busca_tpu.trackers.cmc``).
+"""Camera-motion compensation by ECC image alignment (port of
+``busca_tpu.trackers.cmc``).
 
 The reference aligns consecutive grayscale frames with OpenCV's
 ``findTransformECC`` (Euclidean motion, 100 iterations, eps 1e-5,
@@ -8,6 +8,12 @@ recovered 2x3 matrix.  cv2 is optional and imported where it is used:
 without it, and when ECC does not converge, the warp is the identity.
 :func:`submit_warp` runs a solve on a shared thread pool, so the lockstep
 drivers overlap the sequences' solves with each other and with the device.
+
+Two backends, as in busca_tpu: host cv2 (``backend="cv2"``, the default
+everywhere) and the device Gauss-Newton of :mod:`busca_tpu_torch.ops.ecc`
+(``backend="device"``; busca_tpu's ``"jax"``), 50 iterations at full
+resolution with no early exit.  The two give different warps, so the
+default stays cv2; ``chip_smoke.py`` phase 17 times both on the card host.
 """
 
 from __future__ import annotations
@@ -128,11 +134,30 @@ def compensate_tracks(
     tracks: Sequence,
     prev_frame: Optional[np.ndarray],
     cur_frame: Optional[np.ndarray],
+    backend: str = "cv2",
     scale: float = 1.0,
+    device="cuda",
 ) -> float:
-    """ECC-align frames and warp each track (byte_tracker.py:626-650)."""
+    """ECC-align frames and warp each track (byte_tracker.py:626-650).
+    ``backend="device"`` solves on ``device``
+    (:func:`busca_tpu_torch.ops.ecc.estimate_cmc`: the card unless the
+    caller asks for ``"cpu"``) and refuses a ``scale`` other than 1, as
+    busca_tpu's ``"jax"`` backend does; ``"cv2"`` is the host path and
+    ignores ``device``."""
+    if backend not in ("cv2", "device"):
+        raise ValueError(f"backend must be 'cv2' or 'device', got "
+                         f"{backend!r}")
     if prev_frame is None or cur_frame is None:
         return 1.0
-    cc, warp = ecc_align(prev_frame, cur_frame, scale=scale)
+    if backend == "device":
+        if scale != 1.0:
+            raise ValueError(
+                "cmc scale (downscaled ECC) is only implemented for the "
+                "cv2 backend; backend='device' solves at full resolution")
+        from busca_tpu_torch.ops.ecc import estimate_cmc
+
+        cc, warp = estimate_cmc(prev_frame, cur_frame, device=device)
+    else:
+        cc, warp = ecc_align(prev_frame, cur_frame, scale=scale)
     apply_warp(tracks, warp)
     return cc

@@ -11,6 +11,13 @@ torch ops) and updates it with :class:`AdamW`, which computes optax's
 cosine schedule) step for step.  Dropout's masks come from a generator per
 step, the counterpart of JAX's per-step ``rng``; :func:`step_generator`
 derives it from ``(seed, step)``, so a resumed run draws the same masks.
+
+:func:`make_sharded_train_step` runs the step over a (dp, tp) mesh of
+``torch.distributed`` ranks (``parallel/mesh.py``): the batch split over
+dp, the Transformer and the ReID split over tp, the BN statistics, the
+masked-mean loss and the gradients summed over dp, the clip's norm over
+tp.  Each rank draws dropout masks for its own part, so a sharded step
+equals the unsharded one at dropout 0.
 """
 
 from __future__ import annotations
@@ -85,7 +92,7 @@ class AdamW(torch.optim.Optimizer):
                      for p in params]
             clip = group["grad_clip"]
             if clip:
-                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                norm = self._global_norm(params, grads)
                 keep = norm < clip
                 grads = [torch.where(keep, g, g / norm * clip) for g in grads]
             b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
@@ -109,6 +116,36 @@ class AdamW(torch.optim.Optimizer):
                 p.add_(step_size * u)
             group["count"] = count
 
+    def _global_norm(self, params, grads) -> torch.Tensor:
+        """The global norm of ``grads`` for the clip."""
+        return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+
+
+class ShardedAdamW(AdamW):
+    """:class:`AdamW` over the local parameters of a model sharded over tp
+    (``parallel/mesh.py::shard_model``): the clip's global norm sums the
+    squares of the ``split`` parameters' gradients over ``tp_group`` and
+    counts every whole (replicated) one once, in the parameters' order, so
+    a tp of 1 rounds as :class:`AdamW` does.  The update is elementwise and
+    needs no collective."""
+
+    def __init__(self, params, split=(), tp_group=None, **kw):
+        super().__init__(params, **kw)
+        self._split = {id(p) for p in split}
+        self._tp_group = tp_group
+
+    def _global_norm(self, params, grads) -> torch.Tensor:
+        import torch.distributed as dist
+
+        sq = [torch.sum(g * g) for g in grads]
+        idx = [i for i, p in enumerate(params) if id(p) in self._split]
+        if self._tp_group is not None and idx:
+            parts = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(parts, group=self._tp_group)
+            for j, i in enumerate(idx):
+                sq[i] = parts[j]
+        return torch.sqrt(sum(sq))
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    learning_rate: float = 1e-4, weight_decay: float = 1e-4,
@@ -129,25 +166,40 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
-def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]):
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], group=None):
+    """The masked mean of ``x`` (denominator ``max(mask.sum(), 1)``); with
+    a dp ``group``, this rank's share of the mean over the global batch
+    (its numerator over the summed denominator): the shares sum to it."""
     if mask is None:
-        return x.mean()
-    # padded lanes are out of the ReID BN statistics through the same mask;
-    # they are out of the loss and the accuracy too
-    m = mask.to(torch.float32)
-    return (x * m).sum() / torch.clamp(m.sum(), min=1.0)
+        if group is None:
+            return x.mean()
+        m = None
+        den = torch.full((), float(x.numel()), device=x.device)
+    else:
+        # padded lanes are out of the ReID BN statistics through the same
+        # mask; they are out of the loss and the accuracy too
+        m = mask.to(torch.float32)
+        den = m.sum()
+    if group is not None:
+        import torch.distributed as dist
+
+        den = den.detach().clone()
+        dist.all_reduce(den, group=group)
+    num = x.sum() if m is None else (x * m).sum()
+    return num / torch.clamp(den, min=1.0)
 
 
-def _forward(model: BuscaModel, batch: dict, generator):
+def _forward(model: BuscaModel, batch: dict, generator, group=None):
     """``batch`` on the model's device, its logits and labels, and the
-    masked-mean cross-entropy loss."""
+    masked-mean cross-entropy loss (this rank's share with a dp
+    ``group``)."""
     device = next(model.parameters()).device
     b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
     logits = model(b["mem_crops"], b["can_crops"], b["mem_boxes"],
                    b["can_boxes"], b.get("mask"), generator=generator)
     labels = b["labels"].long()
     loss = _masked_mean(F.cross_entropy(logits, labels, reduction="none"),
-                        b.get("mask"))
+                        b.get("mask"), group)
     return b, logits, labels, loss
 
 
@@ -180,11 +232,65 @@ def make_train_step(model: BuscaModel, optimizer: torch.optim.Optimizer):
     return step
 
 
+def make_sharded_train_step(model: BuscaModel, mesh):
+    """The train step over a (dp, tp) mesh (busca_tpu's
+    ``make_sharded_train_step``; ``parallel/mesh.py``).  ``model`` is
+    sharded in place (:func:`~busca_tpu_torch.parallel.mesh.shard_model`:
+    this rank's tp shards, BN statistics summed over dp) and a
+    :class:`ShardedAdamW` with :func:`make_optimizer`'s defaults (lr 1e-4,
+    weight decay 1e-4, clip 1.0) is built on its local parameters.
+    Returns ``(step, optimizer)``; ``step(batch, generator=None)`` takes
+    the global batch, as every rank's copy of it, runs this rank's dp slice
+    (the batch must split evenly), sums the gradients over dp and updates;
+    its metrics are the global batch's, the same on every rank."""
+    import torch.distributed as dist
+
+    from busca_tpu_torch.parallel import mesh as meshlib
+
+    specs = meshlib.shard_model(model, mesh)
+    tp = meshlib.axis_size(mesh, "tp")
+    split = [p for name, p in model.named_parameters()
+             if tp > 1 and "tp" in specs[name]]
+    optimizer = ShardedAdamW(model.parameters(), split,
+                             mesh.get_group("tp") if tp > 1 else None,
+                             learning_rate=1e-4, weight_decay=1e-4,
+                             grad_clip=1.0)
+    dp_group = mesh.get_group("dp")
+
+    def step(batch: dict, generator: Optional[torch.Generator] = None):
+        model.train()
+        local = {k: meshlib.batch_sharding(mesh, torch.as_tensor(v))
+                 for k, v in batch.items()}
+        b, logits, labels, loss = _forward(model, local, generator,
+                                           dp_group)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch._utils._flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=dp_group)
+        for g, summed in zip(grads, torch._utils._unflatten_dense_tensors(
+                flat, grads)):
+            g.copy_(summed)
+        optimizer.step()
+        with torch.no_grad():
+            acc = _masked_mean((logits.argmax(-1) == labels).to(
+                torch.float32), b.get("mask"), dp_group)
+            metrics = torch.stack([loss.detach(), acc])
+            dist.all_reduce(metrics, group=dp_group)
+        return {"loss": metrics[0], "accuracy": metrics[1]}
+
+    return step, optimizer
+
+
 def train_smoke(steps: int = 3, batch: int = 8,
                 config: Optional[BuscaConfig] = None, spec=None,
-                seed: int = 0, device="cuda"):
-    """A short training run on synthetic episodes.  Returns the model and
-    the last step's metrics as floats."""
+                seed: int = 0, device="cuda", mesh=None,
+                init_state: Optional[dict] = None):
+    """A short training run on synthetic episodes, sharded over ``mesh``
+    (:func:`make_sharded_train_step`) when one is given.  ``init_state``:
+    the initial parameters as a state dict (every parameter; buffers may
+    be absent), else seeded random weights.  Returns the model (this
+    rank's shards under a mesh) and the last step's metrics as floats."""
     from busca_tpu_torch.train.data import EpisodeSpec, synthetic_batch
     from busca_tpu_torch.utils.device import resolve_device
 
@@ -195,9 +301,21 @@ def train_smoke(steps: int = 3, batch: int = 8,
                                crop_hw=(64, 32))
     rng = np.random.RandomState(seed)
     synthetic_batch(rng, spec)  # busca_tpu initializes on this batch
-    model = BuscaModel(config).to(device)
-    model.init_weights(torch.Generator().manual_seed(seed))
-    step = make_train_step(model, make_optimizer(model.parameters()))
+    model = BuscaModel(config)
+    if init_state is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        missing, unexpected = model.load_state_dict(init_state,
+                                                    strict=False)
+        params = {name for name, _ in model.named_parameters()}
+        if unexpected or any(k in params for k in missing):
+            raise KeyError(f"init_state mismatch: missing {missing}, "
+                           f"unexpected {unexpected}")
+    model.to(device)
+    if mesh is not None:
+        step, _ = make_sharded_train_step(model, mesh)
+    else:
+        step = make_train_step(model, make_optimizer(model.parameters()))
     metrics = None
     for i in range(steps):
         metrics = step(synthetic_batch(rng, spec),

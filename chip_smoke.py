@@ -175,7 +175,27 @@ Phases (each failure exits non-zero before the result line):
    (d) the ``frozen_delta`` (in-domain and the ``dim`` shift) and
    ``memcap_delta`` CLIs at their defaults, in two processes side by side;
    (e) ``--det-ap``'s COCO table over the frozen loop's detections;
-16. the ``kernels`` JSON line, then the result line
+16. the dp x tp mesh (run after phase 14) on a one-rank NCCL group (a local
+   TCP store, no gloo): (a) ``make_sharded_train_step`` on the full-width
+   ``BuscaConfig()`` against ``make_train_step`` from the same weights,
+   phase 14's first batch and the same generators, 3 steps with cuDNN's
+   deterministic algorithms: losses and every parameter bit for bit, the
+   steps' ms beside phase 14's; (b) ``--lockstep-dp 1`` (the detector's
+   lockstep batch split over ``local_devices(1)``) over phase 12's
+   sequences: every row equal to phase 12's lockstep output (0 px), K1
+   counted; (c) ``global_metrics`` and ``psum_tallies`` through NCCL equal
+   to the local sums; with two or more cards, ``dryrun_multichip(2)`` over
+   NCCL, else a line saying the multi-rank mesh ran over gloo in Tier-1;
+17. item 25 (run after phase 15): (a) the device ECC (``ops/ecc.py``, 50
+   iterations) on a shift and a small rotation at 800x1440 and 1080x1920:
+   its warp against cv2's ``findTransformECC`` (within 0.25) and the
+   truth, the card against the CPU port (10 iterations), ms per pair
+   against cv2's on this host; (b) phase 7's YOLOX-X loop over 5 frames
+   around the dropout with ``viz_dir`` and an engine with ``debug_dir``
+   (one JPEG per frame, one decision montage per third-round call, one
+   call of phase 4's kind added), then the same frames through a serial
+   loop timed by ``StageTimer(sync=True)``;
+18. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3401,7 +3421,8 @@ def phase_lockstep(device, engine, engine16, det):
           f"K1 launched {k1_launches} times, under one per batch frame")
     lockstep_step_times(det, [s[0] for s in seqs])
     print(f"phase 12: {time.perf_counter() - t0:.2f} s")
-    return k1_launches, {"seqs": seqs, "solo": solos, "lock_ms": lock_ms}
+    return k1_launches, {"seqs": seqs, "solo": solos, "lock_ms": lock_ms,
+                         "lock": lock}
 
 
 def yolox_frames(n):
@@ -4336,20 +4357,22 @@ def phase_train_demo(device):
 
 def phase_training(device, crowd):
     """Phase 14: training (a-d).  Returns K1's launches on the episode
-    sampler's and the rescue demo's paths."""
+    sampler's and the rescue demo's paths, the batches and 14a's step
+    ms."""
     import torch
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     _, batches, k1_train = train_episodes(device, crowd)
-    phase_train_full_width(device, batches)
+    full = phase_train_full_width(device, batches)
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu(device)
     phase_train_resume(device, batches)
     torch.cuda.empty_cache()
     k1_rescue = phase_train_demo(device)
     print(f"phase 14: {time.perf_counter() - t0:.2f} s")
-    return {"train_episodes": k1_train, "trained_rescue": k1_rescue}
+    return ({"train_episodes": k1_train, "trained_rescue": k1_rescue},
+            batches, full["step_ms"])
 
 
 # ---------------------------------------------------------------------------
@@ -4788,6 +4811,405 @@ def phase_frozen(device, engine16, det, lockstep, crowd):
     return k1
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dp x tp mesh on a one-rank NCCL group (item 23).
+
+MESH_STEPS = 3
+ECC_ITERS = 50  # busca_tpu's default
+ECC_CPU_ITERS = 10  # the card-vs-CPU check (the CPU's solve takes seconds)
+ECC_SIZES = ((800, 1440), (1080, 1920))
+ECC_CASES = (("shift", 0.0, 2.5, -2.0), ("rotation", 0.01, 3.0, 2.0))
+ECC_CV2_TOL = 0.25  # tests/test_ecc.py:74's bar, warp entries
+ECC_CARD_CPU_TOL = 1e-3  # the same float32 sums in another order
+ECC_TRACK_TOL = 1e-5  # the same solve on the same card, called twice
+VIZ_FRAMES = 5
+
+
+def mesh_train_step(device, mesh, batches, phase14_ms):
+    """16a: ``make_sharded_train_step`` on the full-width model against
+    ``make_train_step`` from the same weights, batch and generators, with
+    cuDNN's deterministic algorithms: losses and parameters bit for
+    bit."""
+    import torch
+
+    from busca_tpu_torch.models.busca import BuscaConfig, BuscaModel
+    from busca_tpu_torch.parallel.mesh import gather_state_dict
+    from busca_tpu_torch.train.trainer import (
+        make_optimizer,
+        make_sharded_train_step,
+        make_train_step,
+        step_generator,
+    )
+
+    def fresh():
+        model = BuscaModel(BuscaConfig()).to(device)
+        model.init_weights(torch.Generator().manual_seed(TR_SEED))
+        return model
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        plain_model, mesh_model = fresh(), fresh()
+        plain = make_train_step(plain_model,
+                                make_optimizer(plain_model.parameters()))
+        sharded, _ = make_sharded_train_step(mesh_model, mesh)
+        losses, ms = {"plain": [], "mesh": []}, {"plain": [], "mesh": []}
+        for i in range(MESH_STEPS):
+            for tag, step in (("plain", plain), ("mesh", sharded)):
+                m, t = timed_train_step(step, batches[0],
+                                        step_generator(TR_SEED, i, device))
+                losses[tag].append(float(m["loss"]))
+                ms[tag].append(t)
+        whole = gather_state_dict(mesh_model, mesh)
+        gaps = [float((p - whole[n]).abs().max())
+                for n, p in plain_model.state_dict().items()
+                if p.is_floating_point()]
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    print(f"mesh train step (BuscaConfig(), one EpisodeSpec() batch, "
+          f"{MESH_STEPS} steps, dropout 0.1, cuDNN deterministic, NCCL "
+          f"world 1, mesh dp=1 x tp=1): losses {losses['mesh']} against "
+          f"make_train_step's {losses['plain']}; parameters' max |diff| "
+          f"{max(gaps):.3e}; step {ms['mesh'][-1]:.2f} ms against "
+          f"{ms['plain'][-1]:.2f} unsharded (CUDA events, the last step; "
+          f"{card_name_and_limit()}) and phase 14's {phase14_ms:.2f} ms "
+          f"(cuDNN's default algorithms)")
+    check(losses["mesh"] == losses["plain"] and max(gaps) == 0.0,
+          "the sharded step differs from the unsharded one")
+
+
+def mesh_lockstep(det, engine16, lockstep):
+    """16b: ``--lockstep-dp 1`` (the detector split over
+    ``local_devices(1)``) over phase 12's sequences: each sequence's rows
+    equal to phase 12's lockstep output (0 px).  Returns K1's launches."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import busca_tpu_torch.trackers.base as tbase
+    from busca_tpu_torch.eval.detector import track_sequences_lockstep
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+    from busca_tpu_torch.parallel.mesh import local_devices
+
+    split = copy.copy(det).shard_lockstep(local_devices(1, "cuda"))
+    seqs = lockstep["seqs"]
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    tbase.Track.reset_id_counter()
+    trackers = [make_tracker("byte", kwargs, engine16, CROP_HW)
+                for _ in seqs]
+    torch.cuda.synchronize()
+    crop_resize_cuda.launches = 0
+    out = track_sequences_lockstep(split, trackers, [iter(f) for f in seqs],
+                                   names=[r.name for r in lockstep["lock"]])
+    torch.cuda.synchronize()
+    k1 = crop_resize_cuda.launches
+    worst = 0.0
+    for got, want in zip(out, lockstep["lock"]):
+        check(len(got.results) == len(want.results),
+              f"{got.name}: {len(got.results)} frames")
+        for (fa, ta, ia, _), (fb, tb, ib, _) in zip(got.results,
+                                                    want.results):
+            check(fa == fb and ia == ib, f"{got.name} frame {fa}: ids "
+                  f"{ia} against phase 12's {ib}")
+            if len(ta):
+                worst = max(worst, float(np.abs(
+                    np.reshape(ta, (-1, 4)) - np.reshape(tb, (-1, 4))).max()))
+    lock_ms = 1e3 * sum(r.track_time_s for r in out) / sum(
+        r.num_frames for r in out)
+    print(f"--lockstep-dp 1 over phase 12's {len(seqs)} sequences: ids and "
+          f"frames equal to phase 12's lockstep, tlwh max |diff| {worst} "
+          f"px; {lock_ms:.2f} ms per sequence-frame against phase 12's "
+          f"{lockstep['lock_ms']:.2f}; K1 launches {k1}")
+    check(worst == 0.0, f"--lockstep-dp 1 tlwh off by {worst} px")
+    check(k1 > 0, "the split lockstep never launched K1")
+    return k1
+
+
+def mesh_metrics(mesh):
+    """16c: ``global_metrics`` and ``psum_tallies`` through NCCL against
+    the local sums."""
+    import numpy as np
+
+    from busca_tpu_torch.eval.runner import (
+        evaluate_sequence,
+        global_metrics,
+        metrics_to_tally,
+        psum_tallies,
+        run_sequence,
+    )
+    from busca_tpu_torch.eval.synthetic import default_dropout_sequence
+    from busca_tpu_torch.trackers.byte import ByteTracker, ByteTrackerConfig
+
+    per_seq = {}
+    for i in range(4):
+        seq = default_dropout_sequence(num_frames=30, seed=i)
+        res = run_sequence(ByteTracker(ByteTrackerConfig(use_busca=False)),
+                           [None] * seq.num_frames,
+                           [seq.detections(t) for t in range(30)])
+        per_seq[f"seq{i}"] = evaluate_sequence(res, seq.ground_truth())
+    local = global_metrics(per_seq)
+    reduced = global_metrics(per_seq, group=mesh.get_group("dp"))
+    rows = np.stack([metrics_to_tally(m) for m in per_seq.values()])
+    summed = psum_tallies(rows, mesh)
+    print(f"global_metrics through NCCL: MOTA {reduced.mota:.6f}, IDF1 "
+          f"{reduced.idf1:.6f} over {reduced.num_gt} gt boxes, equal to "
+          f"the local sum: {reduced == local}; psum_tallies equal: "
+          f"{bool(np.array_equal(summed, rows.sum(0)))}")
+    check(reduced == local and np.array_equal(summed, rows.sum(0)),
+          "the NCCL metric sum differs from the local one")
+
+
+def phase_mesh(device, batches, phase14_ms, det, engine16, lockstep):
+    """Phase 16: the mesh on a one-rank NCCL group (a local TCP store):
+    (a) the sharded train step, (b) ``--lockstep-dp 1``, (c) the metric
+    sum; with two or more cards, ``dryrun_multichip(2)`` over NCCL.
+    Returns K1's launches on (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from busca_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+    from busca_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", "the mesh's group is not NCCL")
+        mesh = make_mesh(1)
+        check(mesh.device_type == "cuda", "the mesh is not on the card")
+        mesh_train_step(device, mesh, batches, phase14_ms)
+        k1 = mesh_lockstep(det, engine16, lockstep)
+        mesh_metrics(mesh)
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() >= 2:
+        print(dryrun_multichip(2))
+    else:
+        print("mesh: this host has one card; the multi-rank mesh (dp=2, "
+              "tp=2) ran only over gloo in Tier-1 "
+              "(tests/test_torch_{mesh,sharded_train,multiprocess_dp}.py)")
+    print(f"phase 16: {time.perf_counter() - t0:.2f} s")
+    return k1
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the device ECC, the online visualization, the debug montage and
+# StageTimer (item 25).
+
+
+def ecc_pair(h, w, theta, tx, ty, seed=17):
+    """A textured uint8 BGR frame and its image under the Euclidean warp
+    (theta, tx, ty), and the warp ECC should recover (cv2's convention:
+    the inverse of the applied one)."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    small = rng.uniform(0, 255, (h // 8, w // 8)).astype(np.float32)
+    tpl = cv2.GaussianBlur(cv2.resize(small, (w, h),
+                                      interpolation=cv2.INTER_CUBIC),
+                           (5, 5), 1.5)
+    c, s = np.cos(theta), np.sin(theta)
+    true = np.array([[c, -s, tx], [s, c, ty]], np.float32)
+    img = cv2.warpAffine(tpl, true, (w, h),
+                         flags=cv2.INTER_LINEAR | cv2.WARP_INVERSE_MAP)
+    r_inv = np.linalg.inv(true[:, :2])
+    want = np.concatenate([r_inv, (-r_inv @ true[:, 2])[:, None]], axis=1)
+
+    def bgr(g):
+        return np.repeat(np.clip(g, 0, 255).astype(np.uint8)[..., None], 3,
+                         axis=2)
+
+    return bgr(tpl), bgr(img), want
+
+
+def phase_ecc(device):
+    """17a: the device ECC (``ops/ecc.py``, 50 iterations) on the card at
+    800x1440 and 1080x1920 on a shift and a small rotation: its warp
+    against cv2's ``findTransformECC`` (the reference's 100 iterations,
+    eps 1e-5) and the truth, against the CPU port at ECC_CPU_ITERS
+    iterations, and ms per pair against cv2's on this host."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.ops.ecc import ecc_euclidean, estimate_cmc, \
+        rgb_to_gray
+    from busca_tpu_torch.trackers.cmc import ecc_align
+
+    out = {}
+    for h, w in ECC_SIZES:
+        for name, theta, tx, ty in ECC_CASES:
+            prev, cur, want = ecc_pair(h, w, theta, tx, ty)
+            rho, warp = estimate_cmc(prev, cur, ECC_ITERS, device=device)
+            g1 = rgb_to_gray(torch.from_numpy(prev).to(device))
+            g2 = rgb_to_gray(torch.from_numpy(cur).to(device))
+            ms = cuda_time_ms(lambda: ecc_euclidean(g1, g2, ECC_ITERS),
+                              reps=3, warmup=1)
+            t0 = time.perf_counter()
+            estimate_cmc(prev, cur, ECC_ITERS, device=device)
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            cv_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                cc, cv_warp = ecc_align(prev, cur)
+                cv_ms.append(1e3 * (time.perf_counter() - t0))
+            gap_cv = float(np.abs(warp - cv_warp).max())
+            gap_true = float(np.abs(warp - want).max())
+            line = (f"device ECC {h}x{w} {name}: rho {rho:.5f}, warp vs "
+                    f"cv2's max |diff| {gap_cv:.4f} (bar {ECC_CV2_TOL}), vs "
+                    f"the truth {gap_true:.4f}; {ms:.2f} ms per pair on the "
+                    f"card (CUDA events, {ECC_ITERS} iterations, frames "
+                    f"resident), {host_ms:.2f} ms from host frames; cv2 "
+                    f"{float(np.median(cv_ms)):.2f} ms (median of 3, "
+                    f"{ECC_ITERS * 2} iterations, eps 1e-5, cc {cc:.5f})")
+            if name == "shift":
+                _, cpu_warp = ecc_euclidean(g1.cpu(), g2.cpu(),
+                                            ECC_CPU_ITERS)
+                _, card_warp = ecc_euclidean(g1, g2, ECC_CPU_ITERS)
+                gap_cpu = float((card_warp.cpu() - cpu_warp).abs().max())
+                line += (f"; card vs CPU at {ECC_CPU_ITERS} iterations "
+                         f"{gap_cpu:.2e} (bar {ECC_CARD_CPU_TOL})")
+                check(gap_cpu <= ECC_CARD_CPU_TOL,
+                      f"ECC {h}x{w}: card vs CPU {gap_cpu}")
+            print(f"{line}; {card_name_and_limit()}")
+            check(gap_cv <= ECC_CV2_TOL, f"ECC {h}x{w} {name}: off cv2 by "
+                  f"{gap_cv}")
+            out[(h, w, name)] = (ms, float(np.median(cv_ms)))
+            if (h, w) == ECC_SIZES[0] and name == "shift":
+                compensate_on_card(prev, cur, warp)
+    return out
+
+
+def compensate_on_card(prev, cur, warp):
+    """``compensate_tracks(backend="device")`` as a tracker calls it, on
+    host frames with no device named: the solve must run on the card (the
+    card's peak allocation grows by at least the two float32 gray frames)
+    and warp the track by ``estimate_cmc``'s warp on the card."""
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.trackers.cmc import compensate_tracks
+
+    class Warped:
+        def __init__(self):
+            self.warps = []
+
+        def apply_camera_motion(self, w):
+            self.warps.append(np.asarray(w))
+
+    track = Warped()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cc = compensate_tracks([track], prev, cur, backend="device")
+    ms = 1e3 * (time.perf_counter() - t0)
+    grew = torch.cuda.max_memory_allocated() - base
+    gray_bytes = 2 * prev.shape[0] * prev.shape[1] * 4
+    gap = float(np.abs(track.warps[0] - warp).max())
+    print(f"compensate_tracks(backend='device') on host frames "
+          f"{prev.shape[0]}x{prev.shape[1]}: {ms:.2f} ms, cc {cc:.5f}, the "
+          f"card's peak allocation grew {grew} B (two gray frames: "
+          f"{gray_bytes} B), warp vs estimate_cmc on the card {gap:.2e}; "
+          f"{card_name_and_limit()}")
+    check(grew >= gray_bytes, f"compensate_tracks' device ECC allocated "
+          f"{grew} B on the card: it did not solve there")
+    check(gap <= ECC_TRACK_TOL, f"compensate_tracks' warp off "
+          f"estimate_cmc's by {gap}")
+
+
+def phase_viz(det, engine16):
+    """17b: phase 7's YOLOX-X loop over VIZ_FRAMES frames around the
+    dropout with ``viz_dir`` and an engine with ``debug_dir`` (one JPEG per
+    frame, one montage per third-round call), then the same frames
+    through a serial loop timed by ``StageTimer(sync=True)``."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from busca_tpu_torch.assoc.engine import AssociationEngine
+    from busca_tpu_torch.eval.detector import track_frames_with_detector
+    from busca_tpu_torch.eval.run import make_tracker
+    from busca_tpu_torch.eval.runner import write_viz_frame
+    from busca_tpu_torch.eval.synthetic import default_dropout_sequence
+    from busca_tpu_torch.trackers.base import Track
+    from busca_tpu_torch.utils.profiling import StageTimer
+
+    base = default_dropout_sequence(40)
+    start = next(t for t in range(base.num_frames)
+                 if not base.objects[0].detected_at(t)) - 3
+    frames = yolox_frames(start + VIZ_FRAMES)[start:]
+    kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
+              "use_camera_motion_compensation": False}
+    with tempfile.TemporaryDirectory(prefix="busca_viz_") as tmp:
+        debug = os.path.join(tmp, "montage")
+        engine = AssociationEngine(
+            engine16.config, engine16.model, seq_len=engine16.seq_len,
+            num_candidates=engine16.num_candidates, crop_hw=CROP_HW,
+            buckets=engine16.buckets, debug_dir=debug)
+        calls = [0]
+        associate = engine.associate
+
+        def counted(*a, **kw):
+            calls[0] += 1
+            return associate(*a, **kw)
+
+        engine.associate = counted
+        Track.reset_id_counter()
+        viz = os.path.join(tmp, "viz")
+        res = track_frames_with_detector(
+            det, make_tracker("byte", kwargs, engine, CROP_HW), frames,
+            name="viz", viz_dir=viz)
+        in_loop = calls[0]
+        # and one call of phase 4's kind (4 tracks, 8 detections), so a
+        # montage is written whatever the random detector's loop did
+        tracks, dets, kals = association_request(
+            engine, np.random.RandomState(17), frames[0], 4, 8)
+        engine.associate(tracks, dets, extra_kalman_candidates=kals)
+        jpegs = sorted(os.listdir(viz))
+        montages = sorted(os.listdir(debug)) if os.path.isdir(debug) else []
+        shape = cv2.imread(os.path.join(viz, jpegs[0])).shape
+        print(f"online visualization: {len(jpegs)} JPEGs of {shape} for "
+              f"{res.num_frames} frames; {len(montages)} decision montages "
+              f"for {calls[0]} third-round calls ({in_loop} in the loop), "
+              f"the last {cv2.imread(os.path.join(debug, montages[-1])).shape}"
+              if montages else "no montage")
+        check(jpegs == [f"{i:06d}.jpg" for i in range(1, VIZ_FRAMES + 1)],
+              f"viz files {jpegs}")
+        check(len(montages) == calls[0] > in_loop,
+              f"{len(montages)} montages for {calls[0]} third rounds")
+        timer = StageTimer(sync=True)
+        Track.reset_id_counter()
+        tracker = make_tracker("byte", kwargs, engine16, CROP_HW)
+        for i, frame in enumerate(frames):
+            with timer("detect"):
+                d = det.detect(frame)
+            with timer("track"):
+                online = tracker.update(d.boxes_tlbr / d.scale, d.scores,
+                                        d.scale, d.image)
+            with timer("viz"):
+                write_viz_frame(os.path.join(tmp, "timed"), i + 1, d.image,
+                                [t.tlwh for t in online],
+                                [t.track_id for t in online], scale=d.scale)
+    print("StageTimer(sync=True) over the serial loop:\n" + timer.report())
+
+
+def phase_item25(device, det, engine16):
+    """Phase 17: 17a the device ECC, 17b the visualization loop."""
+    t0 = time.perf_counter()
+    phase_ecc(device)
+    phase_viz(det, engine16)
+    print(f"phase 17: {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -4844,12 +5266,16 @@ def main() -> int:
                                                yolox)
         k1_serving = phase_serving(yolox, engine16, lockstep, served_ms)
         k1_frozen = phase_frozen(device, engine16, yolox, lockstep, crowd)
-        del yolox, tc32, centertrack, lockstep
+        phase_item25(device, yolox, engine16)
+        del tc32, centertrack
         t_phase = time.perf_counter()
         k1_deformable = phase_deformable(device, engine16)
         print(f"phase 11: {time.perf_counter() - t_phase:.2f} s")
-        del engine, engine16
-        k1_training = phase_training(device, crowd)
+        del engine
+        k1_training, batches, train_ms = phase_training(device, crowd)
+        k1_mesh = phase_mesh(device, batches, train_ms, yolox, engine16,
+                             lockstep)
+        del yolox, engine16, lockstep
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4871,7 +5297,8 @@ def main() -> int:
                               "yolox_lockstep": k1_lockstep,
                               **k1_serving,
                               **k1_frozen,
-                              **k1_training}
+                              **k1_training,
+                              "yolox_lockstep_dp1": k1_mesh}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}
     k2["launches"] += k2_served

@@ -112,21 +112,45 @@ def test_associate_without_kalman_and_empty(shared):
     assert teng.associate(tracks, []) == (None, None)
 
 
-def test_engine_raises_for_unported_modes(shared):
-    """The debug montage (item 25) is still refused, naming its item.
-    ``reid_stats='frozen'`` and ``'auto'`` are ported (items 7 and 24,
-    tests/test_torch_engine_frozen.py): a frozen-BN model with the same
-    weights scores through them, a batch-statistics one is refused."""
-    _, _, model = shared
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        AssociationEngine(BuscaConfig(**SMALL), model,
-                          debug_dir="/nonexistent")
+def test_engine_raises_for_unported_modes(shared, tmp_path):
+    """Every mode of busca_tpu's engine is ported: the debug montage
+    writes one decision montage per scored call, each call scored through
+    the duplicated path (busca_tpu's routing), with busca_tpu's numbers
+    (1e-4, as above); frozen modes refuse it as busca_tpu's do.
+    ``reid_stats='frozen'`` and ``'auto'`` (tests/test_torch_engine_frozen.py):
+    a frozen-BN model with the same weights scores through them, a
+    batch-statistics one is refused."""
+    cfg, variables, model = shared
+    debug = tmp_path / "montage"
+    eng = AssociationEngine(BuscaConfig(**SMALL), model, seq_len=SEQ_LEN,
+                            num_candidates=NUM_CAN, crop_hw=(H, W),
+                            buckets=BUCKETS, debug_dir=str(debug),
+                            bank=DeviceCropBank((H, W), 64, "cpu"))
+    assert not eng.banked  # the montage needs the pixels on the host
+    jeng = JEngine(cfg, {"params": variables["params"]}, seq_len=SEQ_LEN,
+                   num_candidates=NUM_CAN, crop_hw=(H, W), buckets=BUCKETS)
+    for seed in (0, 1):
+        tracks, dets, kals = _scene(seed)
+        got, _ = eng.associate(tracks, dets, extra_kalman_candidates=kals,
+                               select_highest_candidate=False)
+        want, _ = jeng.associate(tracks, dets, extra_kalman_candidates=kals,
+                                 select_highest_candidate=False)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    # associate_many routes each request through the montage's path too
+    tracks, dets, kals = _scene(2)
+    eng.associate_many([(tracks, dets, None, kals), (tracks, dets, None,
+                                                     kals)])
+    assert sorted(p.name for p in debug.iterdir()) == [
+        f"decision_{i:06d}.jpg" for i in range(4)]
     frozen = BuscaModel(BuscaConfig(reid_use_batch_stats=False, **SMALL))
     frozen.load_state_dict(model.state_dict())
     tracks, dets, kals = _scene(0)
     for mode in ("frozen", "auto"):
         with pytest.raises(ValueError, match="batch_stats"):
             AssociationEngine(BuscaConfig(**SMALL), model, reid_stats=mode)
+        with pytest.raises(ValueError, match="decision montage"):
+            AssociationEngine(BuscaConfig(**SMALL), frozen, reid_stats=mode,
+                              debug_dir=str(debug))
         eng = AssociationEngine(BuscaConfig(**SMALL), frozen,
                                 seq_len=SEQ_LEN, num_candidates=NUM_CAN,
                                 crop_hw=(H, W), buckets=BUCKETS,

@@ -196,7 +196,8 @@ def test_reid_stats_batch_accepted_and_later_modes_refused(
     """``--reid-stats batch`` (busca_tpu's default) is accepted and runs as
     the default does; ``frozen`` and ``auto`` (ported with items 7 and 24)
     build a frozen engine and run BUSCA to the report; ``--lockstep-dp``
-    still names item 23."""
+    (ported with item 23) keeps busca_tpu's refusal without
+    ``--lockstep``."""
     argv = ["--synthetic", "--num-frames", "12", "--tracker", "sort",
             "--device", "cpu"]
     out = []
@@ -225,4 +226,4 @@ def test_reid_stats_batch_accepted_and_later_modes_refused(
         assert np.isfinite(res["busca"]["mota"])
     with pytest.raises(SystemExit):
         trun.main(argv + ["--lockstep-dp", "2"])
-    assert "item 23" in capsys.readouterr().err
+    assert "--lockstep-dp requires --lockstep" in capsys.readouterr().err

@@ -1,6 +1,6 @@
 """The port's lockstep tracking server (busca_tpu_torch/serve/lockstep.py)
 on the CPU: every case of tests/test_lockstep_server.py but the dp-sharded
-one (ROADMAP.md Queue 1 item 23), on the port (each stream equals its own
+one (tests/test_torch_lockstep_dp.py), on the port (each stream equals its own
 sequential loop after relabelling ids by first appearance; ticks coalesce;
 a straggler does not stall its peers; streams join and leave; a tick's
 failure errors only the streams it has not serviced; unix-socket serving;
@@ -555,8 +555,8 @@ def _main_with(spy, argv):
      "--mem-cap must be >= 4"),
     (["--detector", "yolox-tiny", "--tracker", "sort", "--mem-cap", "64"],
      "--mem-cap only applies to the byte-family trackers"),
-    (["--detector", "yolox-tiny", "--lockstep", "--lockstep-dp", "2"],
-     "ROADMAP.md Queue 1 item 23"),
+    (["--detector", "yolox-tiny", "--lockstep-dp", "2"],
+     "--lockstep-dp requires --lockstep"),
 ])
 def test_serve_cli_lockstep_and_mem_cap_refusals(argv, message, capsys):
     with pytest.raises(SystemExit) as e:

@@ -97,8 +97,15 @@ def _serve_on_thread(server):
     return TrackingClient(cli_sock), t
 
 
+SOCKET_WAIT_S = 60.0
+
+
 def _wait_for_socket(path):
-    for _ in range(200):
+    """Connect once the server listens.  The wait covers start-up, not a
+    bar on it: a server that first loads three exported programs takes
+    ~7 s to listen on an idle CPU and more beside the suite's workers."""
+    deadline = time.monotonic() + SOCKET_WAIT_S
+    while time.monotonic() < deadline:
         try:
             return TrackingClient.connect_unix(path)
         except (FileNotFoundError, ConnectionRefusedError):
@@ -617,15 +624,22 @@ def test_serve_cli_defaults_match_eval():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--lockstep-dp", "2"], "item 23"),
-])
+    (["--lockstep-dp", "2"], "--lockstep-dp requires --lockstep"),
+    (["--lockstep", "--lockstep-dp", "2", "--detector-artifact", "art/"],
+     "needs a live --detector"),
+    (["--lockstep", "--lockstep-dp", "2", "--device", "cuda"],
+     "CUDA device(s) are visible"),
+], ids=["without-lockstep", "with-artifact", "above-device-count"])
 def test_serve_cli_refuses_unported_flags(argv, item, capsys):
+    """Every flag of busca_tpu's server is ported; ``--lockstep-dp`` keeps
+    busca_tpu's refusals (busca_tpu/serve/server.py:605-615): it needs
+    ``--lockstep`` and a live detector, and a count above the visible
+    devices is refused by name (this host has no card)."""
     with pytest.raises(SystemExit) as e:
         server_mod.main(["--socket", "/tmp/x.sock", "--detector", "yolox-x",
                          "--device", "cpu"] + argv)
     assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP.md Queue 1 {item}" in err
+    assert item in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("mode", ["frozen", "auto"])
@@ -678,11 +692,16 @@ def _served(argv, monkeypatch):
      and s.tracker_factory().cfg.mem_cap == 64),
     (["--detector", "yolox-tiny", "--lockstep", "--tick-timeout", "0.05"],
      lambda s: s.tick_timeout == 0.05),
-], ids=["detector-artifact", "lockstep", "mem-cap", "tick-timeout"])
+    (["--detector", "yolox-tiny", "--lockstep", "--lockstep-dp", "2"],
+     lambda s: len(s.detector._shards) == 2
+     and s.detector._shards[0] is s.detector),
+], ids=["detector-artifact", "lockstep", "mem-cap", "tick-timeout",
+        "lockstep-dp"])
 def test_serve_cli_accepts_ported_flags(argv, check, monkeypatch):
     """The ported flags that test_serve_cli_refuses_unported_flags once
     refused build their server: an artifact's detector, the lockstep
-    server, its tick timeout, the memory cap on every stream's tracker."""
+    server, its tick timeout, the memory cap on every stream's tracker,
+    the lockstep batch split over two (CPU) devices."""
     monkeypatch.setattr(server_mod, "load_artifact_detector",
                         lambda d, device: f"artifact {d}")
     assert check(_served(argv, monkeypatch))

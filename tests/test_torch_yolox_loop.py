@@ -294,15 +294,36 @@ def test_cli_refuses_flags_of_later_items(mot_sequence, tmp_path, capsys,
                                          monkeypatch):
     from busca_tpu_torch.eval import run as trun
 
-    # --lockstep and --mem-cap are ported (tests/test_torch_lockstep*.py);
-    # the modes of later items are refused, naming them
+    # every flag of busca_tpu's CLI is ported: --lockstep-dp splits the
+    # lockstep batch over two (CPU) devices and writes the same results as
+    # the unsplit run (shard_lockstep is bit-equal per frame,
+    # tests/test_torch_lockstep_dp.py); --online-visualization writes one
+    # JPEG per frame
     base = ["--mot-dir", mot_sequence, "--device", "cpu"]
-    for argv, item in ((["--detector", "yolox-tiny", "--lockstep",
-                         "--lockstep-dp", "2"], "item 23"),
-                       (["--online-visualization"], "item 25")):
+    live = ["--detector", "yolox-tiny", "--test-h", "64", "--test-w", "96",
+            "--max-frames", "3"]
+    seq = os.path.basename(mot_sequence.rstrip("/"))
+    rows = {}
+    for tag, extra in (("lockstep", ["--lockstep"]),
+                       ("dp", ["--lockstep", "--lockstep-dp", "2"]),
+                       ("viz", ["--online-visualization"])):
+        trun.main(base + live + extra + ["--output-dir",
+                                         str(tmp_path / tag)])
+        with open(tmp_path / tag / f"{seq}.txt") as f:
+            rows[tag] = f.read()
+    assert rows["dp"] == rows["lockstep"]
+    assert sorted(os.listdir(tmp_path / "viz" / f"{seq}_viz")) == [
+        f"{i:06d}.jpg" for i in (1, 2, 3)]
+    # busca_tpu's refusals: --lockstep-dp without --lockstep, with an
+    # artifact, or above the visible devices (this host has no card)
+    for argv, msg in ((live + ["--lockstep-dp", "2"], "requires --lockstep"),
+                      (["--detector-artifact", str(tmp_path), "--lockstep",
+                        "--lockstep-dp", "2"], "live --detector"),
+                      (live + ["--lockstep", "--lockstep-dp", "2",
+                               "--device", "cuda"], "visible")):
         with pytest.raises(SystemExit):
             trun.main(base + argv)
-        assert item in capsys.readouterr().err
+        assert msg in capsys.readouterr().err
     # --reid-stats frozen|auto are ported (items 7 and 24): the live-
     # detector run hands them to build_engine and runs to its report
     seen = []
