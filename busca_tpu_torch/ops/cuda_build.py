@@ -5,6 +5,11 @@ library with a plain C interface, in the package's gitignored ``_build/``
 directory, named by the source's content hash; it is loaded with ctypes.
 Nothing here runs at import time, so importing a kernel's wrapper needs
 neither CUDA nor a compiler.
+
+    python -m busca_tpu_torch.ops.cuda_build
+
+prebuilds every library the port loads (K1, K2 and the LAPJV solver), for
+an installed package or an image: no GPU is needed, only nvcc and g++.
 """
 
 from __future__ import annotations
@@ -15,9 +20,10 @@ import logging
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 # the kernels' builds and the exports' traces, at INFO
 # (utils/profiling.py::log_compile_times turns it on)
@@ -105,3 +111,42 @@ class CudaLibrary:
             self._declare(lib)
             self._lib = lib
         return self._lib
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """Build K1 and K2 (one nvcc each) and the LAPJV solver (g++), all
+    started together, into the package's ``_build/``; prints each
+    library's path, seconds and compiler report.  Returns 1 if any build
+    failed, else 0.  Touches no GPU: nvcc compiles for ``sm_90a`` without
+    one."""
+    import argparse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from busca_tpu_torch.ops import crop_cuda, lap, lma_cuda
+
+    argparse.ArgumentParser(description=main.__doc__).parse_args(argv)
+    builds = {"K1": (crop_cuda.LIBRARY.build,
+                     crop_cuda.LIBRARY.library_path()),
+              "K2": (lma_cuda.LIBRARY.build, lma_cuda.LIBRARY.library_path()),
+              "LAPJV": (lap.build, lap._LIB_PATH)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {tag: pool.submit(build)
+                   for tag, (build, _) in builds.items()}
+    failed = 0
+    for tag, future in futures.items():
+        try:
+            seconds, report = future.result()
+        except (RuntimeError, OSError) as e:  # a compiler failed or is missing
+            print(f"{tag} build failed: {e}", file=sys.stderr)
+            failed += 1
+            continue
+        print(f"{tag} build: {seconds:.2f} s ({builds[tag][1]})")
+        if report:
+            print(report)
+    print(f"builds in parallel: {time.perf_counter() - t0:.2f} s")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,10 +8,11 @@
 - ``solve_dense`` = ``lapsolver.solve_dense``: rectangular min-cost matching
   that matches the most pairs first; non-finite entries are forbidden pairs.
 
-The native solver is compiled with g++ from the repository's
-``native/lapjv.cc`` into the port's gitignored ``_build/`` directory on first
-use; without a compiler, scipy's ``linear_sum_assignment`` gives the same
-optima (tie-breaking may differ).
+The native solver is compiled with g++ from the package's own
+``csrc/lapjv.cc`` (a copy of busca_tpu's ``native/lapjv.cc``, shipped in the
+wheel) into the package's gitignored ``_build/`` directory on first use or by
+``python -m busca_tpu_torch.ops.cuda_build``; without a compiler, scipy's
+``linear_sum_assignment`` gives the same optima (tie-breaking may differ).
 """
 
 from __future__ import annotations
@@ -20,12 +21,13 @@ import ctypes
 import os
 import subprocess
 import tempfile
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "lapjv.cc")
+_SOURCE = os.path.join(_PKG_DIR, "csrc", "lapjv.cc")
 _LIB_PATH = os.path.join(_PKG_DIR, "_build", "liblapjv.so")
 
 # Large finite stand-in for +inf (the solver requires finite arithmetic).
@@ -35,22 +37,28 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_attempted = False
 
 
-def _build() -> None:
+def build() -> Tuple[float, str]:
     """g++ the solver into a temporary file, then move it into place (safe
-    against concurrent builders)."""
+    against concurrent builders); returns the seconds it took and g++'s
+    report.  Raises ``RuntimeError`` if g++ fails."""
+    t0 = time.perf_counter()
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(_LIB_PATH))
     os.close(fd)
     try:
-        subprocess.run(
+        proc = subprocess.run(
             ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SOURCE,
              "-o", tmp],
-            check=True, capture_output=True,
+            capture_output=True, text=True,
         )
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ lapjv.cc failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
         os.replace(tmp, _LIB_PATH)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    return time.perf_counter() - t0, proc.stderr.strip()
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
@@ -62,7 +70,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
         if not os.path.exists(_LIB_PATH):
             if not os.path.exists(_SOURCE):
                 return None
-            _build()
+            build()
         lib = ctypes.CDLL(_LIB_PATH)
         lib.lapjv_dense.restype = ctypes.c_double
         lib.lapjv_dense.argtypes = [
@@ -72,7 +80,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int32),
         ]
         _lib = lib
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, RuntimeError):
         _lib = None
     return _lib
 

@@ -5,8 +5,10 @@
 
 Phases (each failure exits non-zero before the result line):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   build of kernels K1 and K2 from busca_tpu_torch/csrc/ (one nvcc each,
-   started together), with their ptxas reports;
+   build of kernels K1 and K2 from busca_tpu_torch/csrc/ (one nvcc each)
+   and of the LAPJV solver (g++), all started together, with their ptxas
+   reports: ``busca_tpu_torch.ops.cuda_build.main``, what ``python -m
+   busca_tpu_torch.ops.cuda_build`` runs on an installed package;
 2. K1 against its plain torch version on the card, exactly: a seeded
    1080x1920 frame, 64 boxes (inside, partly outside, wholly outside,
    degenerate), every flag combination of the crop op; the detectors'
@@ -62,11 +64,11 @@ Phases (each failure exits non-zero before the result line):
    plain version at the first frame's boxes, 16 crops against the CPU, a
    300-crop batch against its 256 + 44 chunks run apart, and its time at
    the frame's batch; ``make_tracker`` + ``shim_for_runner`` through
-   ``run_sequence``, base vs BUSCA, for StrongSORT and GHOST (ECC off: the
-   card host has no cv2), DeepSORT base on 10 frames; K1's launches read
-   around the StrongSORT and GHOST runs; AFLink (seeded random link model)
-   and GSI over StrongSORT's rows cut at their gaps, on the card against
-   the CPU; one device profile of a frame with a third round per tracker;
+   ``run_sequence``, base vs BUSCA, for StrongSORT and GHOST (ECC off, so
+   the timings hold no host ECC), DeepSORT base on 10 frames; K1's
+   launches read around the StrongSORT and GHOST runs; AFLink (seeded
+   random link model) and GSI over StrongSORT's rows cut at their gaps, on
+   the card against the CPU; one device profile of a frame with a third round per tracker;
 9. CenterTrack with BUSCA in bf16, and the SORT and MOTDT alternates: the
    full-width CenterTrack detector (DLA-34, 16 exact DCNv2 blocks,
    544x960, float32, seeded random weights with drawn offset/mask
@@ -173,7 +175,8 @@ Phases (each failure exits non-zero before the result line):
    frozen loop, ids relabelled, tlwh within 0.1 px), the lockstep server
    with frozen and a stream snapshotted and restored, K1 counted in each;
    (d) the ``frozen_delta`` (in-domain and the ``dim`` shift) and
-   ``memcap_delta`` CLIs at their defaults, in two processes side by side;
+   ``memcap_delta`` CLIs at their defaults but one seed, in two processes
+   side by side;
    (e) ``--det-ap``'s COCO table over the frozen loop's detections;
 16. the dp x tp mesh (run after phase 14) on a one-rank NCCL group (a local
    TCP store, no gloo): (a) ``make_sharded_train_step`` on the full-width
@@ -195,7 +198,25 @@ Phases (each failure exits non-zero before the result line):
    (one JPEG per frame, one decision montage per third-round call, one
    call of phase 4's kind added), then the same frames through a serial
    loop timed by ``StageTimer(sync=True)``;
-18. the ``kernels`` JSON line, then the result line
+18. the deployment surface, run as a user launches it (after phase 16):
+   (a) ``busca_tpu_torch/`` copied to a temp dir without ``_build/`` (the
+   wheel's layout), ``python -m busca_tpu_torch.ops.cuda_build`` run there
+   in a subprocess, that tree's K1 on phase 2's 64 crops held bit for bit
+   against this tree's and its LAPJV native; (b) the five ``busca-torch-*``
+   entries of ``pyproject.toml`` (tomllib), each called with ``--help`` in
+   a process of its own: exit 0, no jax or busca_tpu imported; (c)
+   ``scripts/run_bytetrack_torch.sh --use-busca`` on a MOT17 layout of 10
+   JPEG frames at 1080x1920 (phase 7's sequence; ``seqinfo.ini``, gt),
+   ``CKPT_DIR`` holding phase 7's calibrated YOLOX-X as the official
+   ``{"model": ...}`` checkpoint, phase 4's BUSCA as a ``.pth`` with a YAML,
+   CMC, BUSCA's dtype and the test size at the CLI's defaults: the
+   launcher's result file against the ``busca-torch-track`` target run in
+   its own process with the same arguments (equal byte for byte), their
+   wall seconds and ms/frame; (d) the ``busca-torch-serve`` target as a
+   process on a unix socket on the card, a ``TrackingClient`` streaming the
+   decoded JPEGs: its rows equal to (c)'s file; K1's launches in each
+   process (read at its exit through a ``sitecustomize`` hook);
+19. the ``kernels`` JSON line, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -527,21 +548,11 @@ def phase_card():
     print(card_name_and_limit())  # as nvidia-smi prints it
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    from concurrent.futures import ThreadPoolExecutor
+    from busca_tpu_torch.ops import cuda_build
 
-    from busca_tpu_torch.ops import crop_cuda, lma_cuda
-
-    libs = {"K1": crop_cuda.LIBRARY, "K2": lma_cuda.LIBRARY}
-    t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(libs)) as pool:
-        builds = dict(zip(libs, pool.map(lambda lib: lib.build(),
-                                         libs.values())))
-    for tag, (secs, report) in builds.items():
-        print(f"{tag} build: {secs:.2f} s "
-              f"({os.path.relpath(libs[tag].library_path())})")
-        print(report)
-    print(f"K1 + K2 builds in parallel: {time.perf_counter() - t0:.2f} s")
+    # K1 and K2 (one nvcc each) and LAPJV, all started together: what an
+    # installed package runs to prebuild them
+    check(cuda_build.main([]) == 0, "a kernel or LAPJV build failed")
 
 
 def hold_against_plain(label, op, plain, kernel_alone, counter, tol, shape,
@@ -1091,8 +1102,8 @@ def phase_main_path(device, engine):
         return assoc(*a, **k)
 
     engine.associate = counted
-    # the card host has no cv2: set CMC off explicitly rather than let ECC
-    # fall back to an identity warp
+    # CMC off, for timing: the loop's ms/frame holds no host ECC (cv2's,
+    # timed apart in phase 17; phase 18 runs it at its default)
     kwargs = {"use_busca": True, "use_camera_motion_compensation": False}
     Track.reset_id_counter()
     crop_resize_cuda.launches = 0
@@ -1339,7 +1350,7 @@ def phase_transcenter(device, engine, k2_ms, dtype="float32", ref=None):
           f"allocated, {(peak - held) / 1e6:.1f} MB above the "
           f"{held / 1e6:.1f} MB held before the step")
 
-    # CMC off: the card host has no cv2
+    # CMC off, for timing: no host ECC in the loop's ms/frame
     tracker = make_tracker(
         "transcenter", {"use_busca": True, "track_thresh": TC_TRACK_THRESH,
                         "use_camera_motion_compensation": False},
@@ -1556,7 +1567,7 @@ def phase_yolox(device, engine):
           f"reached its step: {returned_early}")
     check(returned_early, "detect_async waited for the device")
 
-    # CMC off: the card host has no cv2
+    # CMC off, for timing: no host ECC in the loop's ms/frame
     kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
               "use_camera_motion_compensation": False}
     third_rounds = [0]
@@ -2057,8 +2068,8 @@ def phase_feature_trackers(device, engine):
                         None, ext, frames[:n], dets[:n],
                         {f: gt[f] for f in range(1, n + 1)}, {})
 
-    # GHOST: base vs BUSCA; the card host has no cv2, so GHOST's ECC is set
-    # off explicitly rather than left to fall back to an identity warp
+    # GHOST: base vs BUSCA; GHOST's ECC off, for timing (no host ECC in
+    # the loop's ms/frame)
     ecc_off = {"motion_compensation": False}
     crop_resize_cuda.launches = 0
     run_feature_tracker("GHOST base", "ghost", None, ext, frames, dets, gt,
@@ -2817,7 +2828,7 @@ def phase_server(device, engine, yolox, transcenter, centertrack):
     frames = [seq.frame(t) for t in range(SV_FRAMES)]
 
     def factories(name, thresh):
-        # CMC off: the card host has no cv2
+        # CMC off, for timing: no host ECC in the loop's ms/frame
         kwargs = {"use_busca": True, "track_thresh": thresh,
                   "use_camera_motion_compensation": False}
 
@@ -3299,7 +3310,7 @@ def phase_lockstep(device, engine, engine16, det):
     seqs = lockstep_sequences()
     b = len(seqs)
     lockstep_batch_vs_single(det, [s[0] for s in seqs])
-    # CMC off: the card host has no cv2
+    # CMC off, for timing: no host ECC in the loop's ms/frame
     kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
               "use_camera_motion_compensation": False}
     names = [f"seed{s}" for s in LS_SEEDS]
@@ -3449,7 +3460,7 @@ def yolox_loop(det, engine, frames):
     from busca_tpu_torch.trackers.base import Track
 
     Track.reset_id_counter()
-    # CMC off: the card host has no cv2
+    # CMC off, for timing: no host ECC in the loop's ms/frame
     kwargs = {"use_busca": True, "track_thresh": YX_TRACK_THRESH,
               "use_camera_motion_compensation": False}
     return track_frames_with_detector(
@@ -3901,17 +3912,18 @@ def phase_serving(det, engine, lockstep, served_ms):
     return out
 
 
-def write_mot_gt(directory, gt, frame_hw, n_frames):
+def write_mot_gt(directory, gt, frame_hw, n_frames, name="crowd"):
     """A MOT sequence directory holding ``seqinfo.ini`` and ``gt/gt.txt``
-    of ``gt`` ({frame: (tlwh, ids)}), without frames: the sampler is handed
-    the rendered ones (the card host has no cv2 to decode JPEGs)."""
+    of ``gt`` ({frame: (tlwh, ids)}) for the sequence ``name``, without
+    frames: phase 14's sampler is handed the rendered ones, phase 18 writes
+    JPEGs beside them."""
     os.makedirs(os.path.join(directory, "gt"), exist_ok=True)
     rows = [f"{f},{int(i)},{x:.2f},{y:.2f},{w:.2f},{h:.2f},1,1,1.0"
             for f in sorted(gt) for (x, y, w, h), i in zip(*gt[f])]
     with open(os.path.join(directory, "gt", "gt.txt"), "w") as fh:
         fh.write("\n".join(rows) + "\n")
     with open(os.path.join(directory, "seqinfo.ini"), "w") as fh:
-        fh.write(f"[Sequence]\nname=crowd\nimDir=img1\nframeRate=30\n"
+        fh.write(f"[Sequence]\nname={name}\nimDir=img1\nframeRate=30\n"
                  f"seqLength={n_frames}\nimWidth={frame_hw[1]}\n"
                  f"imHeight={frame_hw[0]}\nimExt=.jpg\n")
 
@@ -4755,16 +4767,19 @@ def frozen_loops(det, engines, engine16, lockstep):
 
 
 def frozen_deviation_studies():
-    """15d: the deviation studies' CLIs at their defaults on the card,
-    ``python -m busca_tpu_torch.eval.frozen_delta --shift dim`` (in-domain
-    and the ``dim`` arm on one trained model) and ``python -m
-    busca_tpu_torch.eval.memcap_delta``, in two processes side by side:
-    both are bound by the host (cv2's ECC of the trackers' camera-motion
+    """15d: the deviation studies' CLIs on the card, ``python -m
+    busca_tpu_torch.eval.frozen_delta --shift dim`` (in-domain and the
+    ``dim`` arm on one trained model) and ``python -m
+    busca_tpu_torch.eval.memcap_delta``, in two processes side by side, at
+    their defaults but one sequence seed (``--seeds 1``; their three took
+    97-266 s, most of the script's time limit with phase 18 added): both
+    are bound by the host (cv2's ECC of the trackers' camera-motion
     compensation), not by the card.  Their reports and seconds are
     printed; a failure or a run past FZ_STUDY_TIMEOUT_S fails the phase,
     and no process outlives it."""
     here = os.path.dirname(os.path.abspath(__file__))
-    runs = {"frozen_delta": ["--shift", "dim"], "memcap_delta": []}
+    runs = {"frozen_delta": ["--shift", "dim", "--seeds", "1"],
+            "memcap_delta": ["--seeds", "1"]}
     t0 = time.perf_counter()
     # the host's cores split between the two; cv2's ECC on one thread
     # each (faster than on all cores there: tools/study_host_cost.py)
@@ -5210,6 +5225,464 @@ def phase_item25(device, det, engine16):
     print(f"phase 17: {time.perf_counter() - t0:.2f} s")
 
 
+# Phase 18: the port's deployment surface, run as a user launches it.
+# DP_FRAMES frames of phase 7's dropout sequence, from three frames before
+# the first object's dropout, are written as JPEGs into a
+# MOT17/train/DP_SEQ layout; the name is outside the per-video BYTE
+# threshold table, so the eval CLI and the server run the same thresholds.
+# Each subprocess gets DP_TIMEOUT_S; the server DP_SERVE_START_S to bind
+# its socket.
+DP_FRAMES = 10
+DP_SEQ = "MOT17-90-FRCNN"
+DP_TIMEOUT_S = 300
+DP_SERVE_START_S = 180
+DP_SCRIPTS = ("busca-torch-track", "busca-torch-serve", "busca-torch-export",
+              "busca-torch-golden", "busca-torch-sample-files")
+# A sitecustomize put first on a subprocess's PYTHONPATH: when
+# DP_LAUNCH_LOG names a file, the process appends K1's launch count to it
+# at exit (a fresh process's counts start at 0, so this is the count of
+# its run).  It then runs the sitecustomize it shadows, if there is one.
+DP_LAUNCH_HOOK = '''\
+import atexit
+import json
+import os
+import sys
+
+_here = os.path.dirname(os.path.abspath(__file__))
+
+
+def _write_launches():
+    crop_cuda = sys.modules.get("busca_tpu_torch.ops.crop_cuda")
+    with open(os.environ["DP_LAUNCH_LOG"], "a") as f:
+        f.write(json.dumps({
+            "pid": os.getpid(),
+            "k1": crop_cuda.crop_resize_cuda.launches if crop_cuda else 0,
+        }) + "\\n")
+
+
+if os.environ.get("DP_LAUNCH_LOG"):
+    atexit.register(_write_launches)
+for _entry in sys.path:
+    _path = os.path.join(os.path.abspath(_entry or "."), "sitecustomize.py")
+    if os.path.dirname(_path) != _here and os.path.isfile(_path):
+        with open(_path) as _f:
+            exec(compile(_f.read(), _path, "exec"), {"__name__": "sitecustomize",
+                                                    "__file__": _path})
+        break
+'''
+# Run in a subprocess: the console-script target argv[1] ("module:func"),
+# called as its script calls it, with argv[2:]; exits with its status.
+DP_RUN_ENTRY = '''\
+import importlib, sys
+module, func = sys.argv[1].split(":")
+sys.exit(getattr(importlib.import_module(module), func)(sys.argv[2:]))
+'''
+# Run in a subprocess: the target argv[1] with --help; prints its exit
+# code and whether the process imported jax.
+DP_HELP_CHECK = '''\
+import importlib, json, sys
+module, func = sys.argv[1].split(":")
+try:
+    rc = getattr(importlib.import_module(module), func)(["--help"])
+except SystemExit as e:
+    rc = e.code
+print(json.dumps({"rc": rc, "jax": "jax" in sys.modules,
+                  "busca_tpu": "busca_tpu" in sys.modules}))
+'''
+# Run in a subprocess on a fresh tree: K1 through the registered op on the
+# inputs saved in argv[1], and the tree's LAPJV; prints where each came
+# from.
+DP_FRESH_K1 = '''\
+import json, os, sys
+import numpy as np
+import torch
+import busca_tpu_torch
+from busca_tpu_torch.ops import crop_cuda, lap
+from busca_tpu_torch.ops.crop import crop_resize_normalize
+root, kw = sys.argv[1], json.loads(sys.argv[2])
+prebuilt = os.path.exists(crop_cuda.LIBRARY.library_path())
+data = np.load(os.path.join(root, "k1_inputs.npz"))
+out = crop_resize_normalize(torch.from_numpy(data["frame"]).cuda(),
+                            torch.from_numpy(data["boxes"]).cuda(),
+                            tuple(int(v) for v in data["out_hw"]), **kw)
+np.save(os.path.join(root, "k1_fresh.npy"), out.cpu().numpy())
+print(json.dumps({"package": busca_tpu_torch.__file__,
+                  "k1_library": crop_cuda.LIBRARY.library_path(),
+                  "prebuilt": prebuilt,
+                  "launches": crop_cuda.crop_resize_cuda.launches,
+                  "lapjv_native": lap._load_native() is not None,
+                  "lapjv_library": lap._LIB_PATH}))
+'''
+
+
+def run_logged(label, cmd, log, timeout=DP_TIMEOUT_S, **kw):
+    """``cmd`` to its end with its output in the file ``log``; fails the
+    phase if it exits non-zero or runs past ``timeout`` (and kills it).
+    Returns its output and wall seconds."""
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                text=True, **kw)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        print(f"{label} output:\n{text[-4000:]}")
+    check(proc.returncode == 0,
+          f"{label} exited {proc.returncode} after {seconds:.1f} s")
+    return text, seconds
+
+
+def read_launches(log, label):
+    """K1's launches over the processes that wrote to ``log``."""
+    check(os.path.exists(log), f"{label}: no process wrote its K1 count")
+    with open(log) as f:
+        return sum(json.loads(line)["k1"] for line in f if line.strip())
+
+
+def fresh_tree_check(tmp, here, env):
+    """18a: ``busca_tpu_torch/`` copied without ``_build/`` and
+    ``__pycache__/`` (the layout the wheel installs), ``python -m
+    busca_tpu_torch.ops.cuda_build`` run there, then that tree's K1 on
+    phase 2's inputs and crops against this tree's K1, and its LAPJV."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from busca_tpu_torch.ops.crop import crop_resize_normalize
+    from busca_tpu_torch.ops.crop_cuda import crop_resize_cuda
+
+    tree = os.path.join(tmp, "tree")
+    shutil.copytree(os.path.join(here, "busca_tpu_torch"),
+                    os.path.join(tree, "busca_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    tree_env = dict(env, PYTHONPATH=tree)
+    out, secs = run_logged(
+        "cuda_build on the fresh tree",
+        [sys.executable, "-m", "busca_tpu_torch.ops.cuda_build"],
+        os.path.join(tmp, "cuda_build.log"), cwd=tree, env=tree_env)
+    print(f"python -m busca_tpu_torch.ops.cuda_build on a fresh copy of the "
+          f"package: {secs:.2f} s\n{out.strip()}")
+    frame, boxes_np, boxes = k1_inputs(
+        "cuda", 1, lambda rng, h, w: smoke_boxes(rng, N_BOXES, h, w))
+    launches = crop_resize_cuda.launches
+    want = crop_resize_normalize(frame, boxes, CROP_HW,
+                                 **K1_MAIN_KW).cpu().numpy()
+    crop_resize_cuda.launches = launches  # a comparison launch
+    np.savez(os.path.join(tmp, "k1_inputs.npz"), frame=frame.cpu().numpy(),
+             boxes=boxes_np, out_hw=np.asarray(CROP_HW))
+    out, _ = run_logged(
+        "K1 on the fresh tree",
+        [sys.executable, "-c", DP_FRESH_K1, tmp, json.dumps(K1_MAIN_KW)],
+        os.path.join(tmp, "fresh_k1.log"), cwd=tree, env=tree_env)
+    info = json.loads(out.strip().splitlines()[-1])
+    got = np.load(os.path.join(tmp, "k1_fresh.npy"))
+    err = float(np.abs(got - want).max())
+    print(f"fresh tree: K1 from {os.path.relpath(info['k1_library'], tmp)} "
+          f"(prebuilt {info['prebuilt']}, {info['launches']} launch) on "
+          f"phase 2's {N_BOXES} crops {FRAME_HW} -> {CROP_HW}: max |diff| to "
+          f"this tree's K1 {err:.3g}, bit for bit "
+          f"{bool(np.array_equal(got, want))}; LAPJV native "
+          f"{info['lapjv_native']} "
+          f"({os.path.relpath(info['lapjv_library'], tmp)})")
+    for key in ("package", "k1_library", "lapjv_library"):
+        check(info[key].startswith(tree + os.sep),
+              f"the fresh tree's {key} is {info[key]}, outside it")
+    check(info["prebuilt"] and info["launches"] == 1,
+          "the fresh tree's K1 was not the prebuilt library, launched once")
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"the fresh tree's K1 differs from this tree's: {err}")
+    check(info["lapjv_native"], "the fresh tree's LAPJV fell back to scipy")
+    del frame, boxes
+    torch.cuda.synchronize()
+
+
+def console_script_checks(tmp, here, env):
+    """18b: each ``busca-torch-*`` entry of ``pyproject.toml``, read with
+    tomllib, called as its console script calls it with ``--help`` in a
+    process of its own (all started together): exit 0, and no jax or
+    busca_tpu imported by the end.  Returns the entries."""
+    import importlib.util
+    import tomllib
+
+    with open(os.path.join(here, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    ours = {k: v for k, v in scripts.items() if k.startswith("busca-torch-")}
+    check(sorted(ours) == sorted(DP_SCRIPTS),
+          f"pyproject.toml's port scripts are {sorted(ours)}")
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", DP_HELP_CHECK, target], cwd=tmp, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, target in ours.items()}
+    try:
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=DP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                check(False, f"{name} --help ran past {DP_TIMEOUT_S} s")
+            check(proc.returncode == 0, f"{name} --help: {err[-2000:]}")
+            got = json.loads(out.strip().splitlines()[-1])
+            print(f"{name} -> {ours[name]}: --help exits {got['rc']}, jax "
+                  f"imported {got['jax']}, busca_tpu imported "
+                  f"{got['busca_tpu']}")
+            check(got == {"rc": 0, "jax": False, "busca_tpu": False},
+                  f"{name}: {got}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"the five console scripts' --help, side by side: "
+          f"{time.perf_counter() - t0:.2f} s (jax installed on this host: "
+          f"{importlib.util.find_spec('jax') is not None})")
+    return ours
+
+
+def deployment_inputs(tmp, det, engine16):
+    """18c's inputs: the MOT17 layout of DP_FRAMES JPEG frames (seqinfo.ini,
+    gt/gt.txt), CKPT_DIR with phase 7's calibrated YOLOX-X as the official
+    ``{"model": state_dict}`` envelope, phase 4's BUSCA weights as a
+    ``.pth`` and its YAML.  Returns ``(data root, sequence dir, ckpt dir,
+    detector ckpt, yaml, pth)``."""
+    import dataclasses
+
+    import cv2
+    import torch
+    import yaml
+
+    from busca_tpu_torch.eval.synthetic import (
+        SyntheticSequence,
+        default_dropout_sequence,
+    )
+    from busca_tpu_torch.models.busca import BuscaConfig
+
+    base = default_dropout_sequence(40)
+    start = next(t for t in range(base.num_frames)
+                 if not base.objects[0].detected_at(t)) - 3
+    seq = SyntheticSequence(base.objects, num_frames=base.num_frames,
+                            height=FRAME_HW[0], width=FRAME_HW[1],
+                            seed=base.seed)
+    data = os.path.join(tmp, "datasets")
+    seq_dir = os.path.join(data, "MOT17", "train", DP_SEQ)
+    os.makedirs(os.path.join(seq_dir, "img1"))
+    t0 = time.perf_counter()
+    for i in range(DP_FRAMES):
+        check(cv2.imwrite(os.path.join(seq_dir, "img1", f"{i + 1:06d}.jpg"),
+                          seq.frame(start + i)), "cv2.imwrite failed")
+    gt = seq.ground_truth()
+    write_mot_gt(seq_dir, {f: gt[start + f] for f in range(1, DP_FRAMES + 1)},
+                 FRAME_HW, DP_FRAMES, name=DP_SEQ)
+    ckpt_dir = os.path.join(tmp, "pretrained")
+    os.makedirs(ckpt_dir)
+    det_ckpt = os.path.join(ckpt_dir, "bytetrack_ablation.pth.tar")
+    torch.save({"model": {k: v.cpu() for k, v in
+                          det.model.state_dict().items()}}, det_ckpt)
+    pth = os.path.join(tmp, "model_busca.pth")
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in
+                                     engine16.model.state_dict().items()}},
+               pth)
+    transformer = {k: v for k, v in
+                   dataclasses.asdict(engine16.config).items()
+                   if k not in ("dtype", "reid_use_batch_stats")}
+    transformer["reid_layers"] = list(transformer["reid_layers"])
+    check(BuscaConfig.from_dict(transformer) == dataclasses.replace(
+        engine16.config, dtype="float32"), "the YAML's BUSCA config")
+    yml = os.path.join(tmp, "config_bytetrack_mot17.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump({"transformer": transformer,
+                        "tracker": {"track_thresh": YX_TRACK_THRESH}}, f)
+    print(f"deployment inputs: {DP_FRAMES} JPEG frames {FRAME_HW} (frames "
+          f"{start}-{start + DP_FRAMES - 1} of phase 7's sequence), the "
+          f"YOLOX-X checkpoint ({os.path.getsize(det_ckpt)} B), BUSCA's "
+          f"({os.path.getsize(pth)} B) and its YAML, written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return data, seq_dir, ckpt_dir, det_ckpt, yml, pth
+
+
+def cli_report(text, label):
+    """The sequence line's ms per frame and the accumulated CLEAR of the
+    eval CLI's output."""
+    line = next((ln for ln in text.splitlines()
+                 if ln.startswith(f"{DP_SEQ}: {DP_FRAMES} frames @")), None)
+    check(line is not None, f"{label}: no sequence line in its output")
+    fps = float(line.split(" @ ")[1].split(" fps")[0])
+    start = text.index("\n{\n") + 1
+    metrics = json.loads(text[start:text.index("\n}", start) + 2])
+    return line, 1e3 / fps, metrics
+
+
+def launcher_runs(tmp, here, env, inputs, target):
+    """18c: ``scripts/run_bytetrack_torch.sh --use-busca`` on the MOT17
+    layout (CMC, BUSCA's dtype and the test size at the CLI's defaults),
+    then the ``busca-torch-track`` target with the arguments the launcher
+    passed.  Their result files must be equal.  Returns the launcher's
+    result file's text and K1's launches in its run."""
+    data, seq_dir, ckpt_dir, det_ckpt, yml, pth = inputs
+    exp = os.path.join(tmp, "exp")
+    log = os.path.join(tmp, "launches_launcher.jsonl")
+    extra = ["--det-conf", str(YX_CONF)]
+    text, secs = run_logged(
+        "run_bytetrack_torch.sh",
+        ["bash", os.path.join(here, "scripts", "run_bytetrack_torch.sh"),
+         "--use-busca", "--busca-config", yml, "--busca-ckpt", pth,
+         "--output-base-folder", exp, *extra],
+        os.path.join(tmp, "launcher.log"), cwd=tmp,
+        env=dict(env, MOT_DATA_DIR=data, CKPT_DIR=ckpt_dir,
+                 DP_LAUNCH_LOG=log))
+    k1 = read_launches(log, "the launcher")
+    runs = os.listdir(os.path.join(exp, "ByteTrack", "MOT17", "val"))
+    check(len(runs) == 1 and runs[0].endswith("_ByteTrack_BUSCA"),
+          f"the launcher's experiment dirs: {runs}")
+    run_dir = os.path.join(exp, "ByteTrack", "MOT17", "val", runs[0])
+    check("BUSCA ENABLED" in text and os.path.getsize(
+        os.path.join(run_dir, "out.txt")) > 0, "the launcher's log")
+    with open(os.path.join(run_dir, "track_results", f"{DP_SEQ}.txt")) as f:
+        rows = f.read()
+    line, ms, metrics = cli_report(text, "the launcher")
+    print(f"launcher: {line}")
+    print(f"launcher run_bytetrack_torch.sh --use-busca ({FRAME_HW[0]}x"
+          f"{FRAME_HW[1]} JPEGs, YOLOX-X at the CLI's 800x1440, BUSCA at its "
+          f"bf16 default, CMC on): {secs:.2f} s wall, {ms:.2f} ms/frame "
+          f"(from the CLI's fps, printed to 0.1); "
+          f"{len(rows.splitlines())} result rows; MOTA {metrics['mota']:.4f} "
+          f"IDF1 {metrics['idf1']:.4f} IDs {metrics['num_switches']}; K1 "
+          f"launches "
+          f"{k1}; {card_name_and_limit()}")
+
+    out_dir = os.path.join(tmp, "target")
+    log2 = os.path.join(tmp, "launches_target.jsonl")
+    argv = ["--tracker", "byte", "--mot-dir", seq_dir + "/",
+            "--output-dir", out_dir, "--detector", "yolox-x",
+            "--detector-ckpt", det_ckpt, "--use-busca", "--busca-config", yml,
+            "--busca-ckpt", pth, *extra]
+    text2, secs2 = run_logged(
+        "busca-torch-track", [sys.executable, "-c", DP_RUN_ENTRY, target,
+                              *argv],
+        os.path.join(tmp, "target.log"), cwd=tmp,
+        env=dict(env, DP_LAUNCH_LOG=log2))
+    k1_target = read_launches(log2, "busca-torch-track")
+    with open(os.path.join(out_dir, f"{DP_SEQ}.txt")) as f:
+        rows2 = f.read()
+    line2, ms2, metrics2 = cli_report(text2, "busca-torch-track")
+    print(f"busca-torch-track: {line2}")
+    print(f"busca-torch-track ({target}) with the launcher's arguments: "
+          f"{secs2:.2f} s wall, {ms2:.2f} ms/frame (the CLI's fps); K1 "
+          f"launches {k1_target}; "
+          f"result file equal to the launcher's: {rows2 == rows}")
+    check(rows and rows2 == rows,
+          "the launcher's and busca-torch-track's result files differ")
+    check(metrics2 == metrics, "the two runs' CLEAR metrics differ")
+    check(all(float(v) == float(v) for row in rows.splitlines()
+              for v in row.split(",")), "a non-finite result value")
+    check(k1 >= DP_FRAMES and k1_target == k1,
+          f"K1 launched {k1} times in the launcher's run and {k1_target} in "
+          f"the target's, for {DP_FRAMES} frames")
+    return rows, k1
+
+
+def served_cli(tmp, env, inputs, target, rows):
+    """18d: the image's entry point, the ``busca-torch-serve`` target, as a
+    process on a unix socket on the card with 18c's checkpoints and YAML;
+    a ``TrackingClient`` streams the decoded JPEGs.  The served rows must
+    equal 18c's result file.  Returns K1's launches in the server."""
+    import cv2
+
+    from busca_tpu_torch.eval.mot import load_seqinfo
+    from busca_tpu_torch.serve.server import TrackingClient
+
+    _, seq_dir, _, det_ckpt, yml, pth = inputs
+    sock = os.path.join(tmp, "serve.sock")
+    check(len(sock.encode()) < 100, f"socket path too long: {sock}")
+    log = os.path.join(tmp, "launches_server.jsonl")
+    server_log = os.path.join(tmp, "server.log")
+    t0 = time.perf_counter()
+    with open(server_log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", DP_RUN_ENTRY, target, "--socket", sock,
+             "--detector", "yolox-x", "--detector-ckpt", det_ckpt,
+             "--use-busca", "--busca-config", yml, "--busca-ckpt", pth,
+             "--det-conf", str(YX_CONF), "--max-connections", "1"],
+            cwd=tmp, env=dict(env, DP_LAUNCH_LOG=log), stdout=out,
+            stderr=subprocess.STDOUT, text=True)
+    try:
+        client = None
+        while client is None:
+            try:
+                client = TrackingClient.connect_unix(sock)
+            except (FileNotFoundError, ConnectionRefusedError):
+                check(proc.poll() is None and time.perf_counter() - t0 <
+                      DP_SERVE_START_S, "busca-torch-serve never bound its "
+                      "socket")
+                time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        info = load_seqinfo(seq_dir)
+        frames = [cv2.imread(info.frame_path(f))
+                  for f in range(1, info.seq_length + 1)]
+        check(client.start(DP_SEQ).get("ok"), "the server refused start")
+        replies, rtt = served_frames(client, frames, "busca-torch-serve")
+        client.stop()
+        proc.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(server_log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        print(f"busca-torch-serve output:\n{text[-4000:]}")
+    check(proc.returncode == 0, f"busca-torch-serve exited {proc.returncode}")
+    k1 = read_launches(log, "busca-torch-serve")
+    served = "".join(
+        f"{r['frame_id']},{t['id']},{t['tlwh'][0]:.2f},{t['tlwh'][1]:.2f},"
+        f"{t['tlwh'][2]:.2f},{t['tlwh'][3]:.2f},{t['score']:.2f},-1,-1,-1\n"
+        for r in replies for t in r["tracks"])
+    print(f"busca-torch-serve ({target}) on a unix socket: up in {up_s:.2f} "
+          f"s; {len(frames)} decoded frames served at "
+          f"{sum(rtt) / len(rtt):.2f} ms/frame round trip, "
+          f"{sum(rtt[1:]) / (len(rtt) - 1):.2f} after the first (round "
+          f"trips {[round(t, 2) for t in rtt]} ms); K1 launches {k1}; "
+          f"served rows equal to the launcher's result file: "
+          f"{served == rows}; {card_name_and_limit()}")
+    check(served == rows, "the served rows differ from the launcher's")
+    check(k1 >= DP_FRAMES, f"the server launched K1 {k1} times")
+    return k1
+
+
+def phase_deployment(det, engine16):
+    """Phase 18: 18a the fresh tree's prebuild and K1, 18b the console
+    scripts, 18c the ByteTrack launcher against ``busca-torch-track``, 18d
+    ``busca-torch-serve``.  Returns K1's launches on the launcher's and the
+    served path."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="busca_deploy_") as tmp:
+        hook = os.path.join(tmp, "hook")
+        os.makedirs(hook)
+        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+            f.write(DP_LAUNCH_HOOK)
+        env = {k: v for k, v in os.environ.items() if k != "DP_LAUNCH_LOG"}
+        fresh_tree_check(tmp, here, env)
+        env["PYTHONPATH"] = os.pathsep.join([hook, here])
+        scripts = console_script_checks(tmp, here, env)
+        inputs = deployment_inputs(tmp, det, engine16)
+        rows, k1_launcher = launcher_runs(tmp, here, env, inputs,
+                                          scripts["busca-torch-track"])
+        k1_served = served_cli(tmp, env, inputs,
+                               scripts["busca-torch-serve"], rows)
+    print(f"phase 18: {time.perf_counter() - t0:.2f} s; "
+          f"{card_name_and_limit()}")
+    return {"launcher_bytetrack": k1_launcher, "serve_cli": k1_served}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -5275,7 +5748,9 @@ def main() -> int:
         k1_training, batches, train_ms = phase_training(device, crowd)
         k1_mesh = phase_mesh(device, batches, train_ms, yolox, engine16,
                              lockstep)
-        del yolox, engine16, lockstep
+        del lockstep
+        k1_deployment = phase_deployment(yolox, engine16)
+        del yolox, engine16
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5298,7 +5773,8 @@ def main() -> int:
                               **k1_serving,
                               **k1_frozen,
                               **k1_training,
-                              "yolox_lockstep_dp1": k1_mesh}
+                              "yolox_lockstep_dp1": k1_mesh,
+                              **k1_deployment}
     k2["launches_by_path"] = {"transcenter_loop": k2["launches"],
                               "server_transcenter": k2_served}
     k2["launches"] += k2_served
