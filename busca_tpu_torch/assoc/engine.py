@@ -63,6 +63,7 @@ from busca_tpu_torch.models.busca import (
     BuscaModel,
 )
 from busca_tpu_torch.models.reid import BatchNorm
+from busca_tpu_torch.utils import profiling
 from busca_tpu_torch.utils.padding import next_pow2
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -264,13 +265,30 @@ class AssociationEngine:
         def opt(x):
             return None if x is None else self._tensor(x)
 
-        return self._scores(
-            mem_crops, can_crops, self._tensor(mem_boxes),
-            self._tensor(can_boxes), self._tensor(mask), normalize_ims,
-            can_weights=opt(can_weights), can_gather=opt(can_gather),
-            mem_group=opt(mem_group), can_group=opt(can_group),
-            num_groups=num_groups,
-        ).cpu().numpy()
+        if profiling.tracing():
+            # a crop is the last three dimensions of either batch
+            self._count_call(int(mask.sum()), mem_crops.shape[0],
+                             mem_crops.shape[:-3].numel()
+                             + can_crops.shape[:-3].numel())
+        with profiling.span("assoc.prep"):
+            args = (self._tensor(mem_boxes), self._tensor(can_boxes),
+                    self._tensor(mask))
+            kw = dict(can_weights=opt(can_weights),
+                      can_gather=opt(can_gather), mem_group=opt(mem_group),
+                      can_group=opt(can_group))
+        probs = self._scores(mem_crops, can_crops, *args, normalize_ims,
+                             num_groups=num_groups, **kw)
+        with profiling.span("assoc.readback"):
+            return probs.cpu().numpy()
+
+    @staticmethod
+    def _count_call(tracks: int, rows: int, crops: int):
+        """The third round's counters at one model call: the tracks it
+        scores, the track rows it launches (bucket padding included) and
+        the crops through the ReID ResNet-50."""
+        profiling.count("assoc.tracks", tracks)
+        profiling.count("assoc.rows", rows)
+        profiling.count("assoc.crops", crops)
 
     # --------------------------------------------------------------- api --
     def associate(
@@ -287,22 +305,26 @@ class AssociationEngine:
         normalize_ims: bool = True,
     ):
         """Returns (probs_matrix [T, D(+T)], reliable [T]) or (None, None)."""
-        req = self._prep_request(
-            tracks, dets, dists_matrix,
-            use_broader_memory=use_broader_memory,
-            extra_kalman_candidates=extra_kalman_candidates,
-        )
-        if req is None:
-            return None, None
-        probs = self._score_prepped(req, normalize_ims)
-        (_, _, reliable, det_inds, _, _, num_available, d_count, _) = req
-        return self._postprocess(
-            probs, reliable, det_inds, num_available,
-            d_count + len(extra_kalman_candidates),
-            select_highest_candidate=select_highest_candidate,
-            highest_candidate_minimum_thresh=highest_candidate_minimum_thresh,
-            keep_highest_value=keep_highest_value,
-        )
+        with profiling.span("assoc.call"):
+            with profiling.span("assoc.prep"):
+                req = self._prep_request(
+                    tracks, dets, dists_matrix,
+                    use_broader_memory=use_broader_memory,
+                    extra_kalman_candidates=extra_kalman_candidates,
+                )
+            if req is None:
+                return None, None
+            probs = self._score_prepped(req, normalize_ims)
+            (_, _, reliable, det_inds, _, _, num_available, d_count, _) = req
+            with profiling.span("assoc.post"):
+                return self._postprocess(
+                    probs, reliable, det_inds, num_available,
+                    d_count + len(extra_kalman_candidates),
+                    select_highest_candidate=select_highest_candidate,
+                    highest_candidate_minimum_thresh=(
+                        highest_candidate_minimum_thresh),
+                    keep_highest_value=keep_highest_value,
+                )
 
     def associate_many(
         self,
@@ -323,23 +345,29 @@ class AssociationEngine:
         ``(probs_matrix, reliable)`` or ``(None, None)`` per request, in
         order.
         """
+        with profiling.span("assoc.call"):
+            return self._associate_many(
+                requests, normalize_ims, use_broader_memory=use_broader_memory,
+                select_highest_candidate=select_highest_candidate,
+                highest_candidate_minimum_thresh=(
+                    highest_candidate_minimum_thresh),
+                keep_highest_value=keep_highest_value)
+
+    def _associate_many(self, requests, normalize_ims, *,
+                        use_broader_memory, **post_kw):
         results = [(None, None)] * len(requests)
         preps = []
-        for i, (tracks, dets, dists, kal) in enumerate(requests):
-            req = self._prep_request(
-                tracks, dets, dists,
-                use_broader_memory=use_broader_memory,
-                extra_kalman_candidates=kal,
-            )
-            if req is not None:
-                preps.append((i, req, len(dets) + len(kal)))
+        with profiling.span("assoc.prep"):
+            for i, (tracks, dets, dists, kal) in enumerate(requests):
+                req = self._prep_request(
+                    tracks, dets, dists,
+                    use_broader_memory=use_broader_memory,
+                    extra_kalman_candidates=kal,
+                )
+                if req is not None:
+                    preps.append((i, req, len(dets) + len(kal)))
         if not preps:
             return results
-        post_kw = dict(
-            select_highest_candidate=select_highest_candidate,
-            highest_candidate_minimum_thresh=highest_candidate_minimum_thresh,
-            keep_highest_value=keep_highest_value,
-        )
         t_total = sum(req[8] for _, req, _ in preps)
         if self.reid_stats == "frozen" or (
                 self.reid_stats == "auto"
@@ -357,14 +385,16 @@ class AssociationEngine:
             for i, req, ndt in preps:
                 probs = self._score_prepped(req, normalize_ims)
                 (_, _, reliable, det_inds, _, _, num_avail, _, _) = req
-                results[i] = self._postprocess(
-                    probs, reliable, det_inds, num_avail, ndt, **post_kw)
+                with profiling.span("assoc.post"):
+                    results[i] = self._postprocess(
+                        probs, reliable, det_inds, num_avail, ndt, **post_kw)
             return results
-        probs, spans = self._score_grouped(preps, normalize_ims)
-        for i, row0, t_count, reliable, det_inds, num_avail, ndt in spans:
-            results[i] = self._postprocess(
-                probs[row0:row0 + t_count], reliable, det_inds, num_avail,
-                ndt, **post_kw)
+        probs, rows = self._score_grouped(preps, normalize_ims)
+        with profiling.span("assoc.post"):
+            for i, row0, t_count, reliable, det_inds, num_avail, ndt in rows:
+                results[i] = self._postprocess(
+                    probs[row0:row0 + t_count], reliable, det_inds,
+                    num_avail, ndt, **post_kw)
         return results
 
     def _associate_many_frozen(self, preps, results, normalize_ims,
@@ -375,12 +405,13 @@ class AssociationEngine:
         probs = self._frozen_scores([req for _, req, _ in preps],
                                     normalize_ims)
         row = 0
-        for i, req, ndt in preps:
-            (_, _, reliable, det_inds, _, _, num_avail, _, t_count) = req
-            results[i] = self._postprocess(
-                probs[row:row + t_count], reliable, det_inds, num_avail,
-                ndt, **post_kw)
-            row += t_count
+        with profiling.span("assoc.post"):
+            for i, req, ndt in preps:
+                (_, _, reliable, det_inds, _, _, num_avail, _, t_count) = req
+                results[i] = self._postprocess(
+                    probs[row:row + t_count], reliable, det_inds, num_avail,
+                    ndt, **post_kw)
+                row += t_count
         return results
 
     def _score_grouped(self, preps, normalize_ims):
@@ -390,6 +421,7 @@ class AssociationEngine:
         "missing slot" unit, so its weights land in its own group.  Returns
         the raw probabilities and ``(i, row0, t_count, reliable, det_inds,
         num_available, n_cols)`` per request."""
+        prep = profiling.begin("assoc.prep")
         seq_len, c = self.seq_len, self.num_candidates
         h, w = self.crop_hw
         t_total = sum(req[8] for _, req, _ in preps)
@@ -467,6 +499,7 @@ class AssociationEngine:
                 if crop is not None:
                     uniq[ui] = crop
             mem_t, uniq_t = self._tensor(mem_crops), self._tensor(uniq)
+        prep.end()
         probs = self._probs(
             mem_t, uniq_t, mem_boxes, can_boxes, mask, normalize_ims,
             can_weights=w_arr, can_gather=gather, mem_group=mem_group,
@@ -494,11 +527,13 @@ class AssociationEngine:
             )
         c = self.num_candidates
         h, w = self.crop_hw
+        prep = profiling.begin("assoc.prep")
         can_crops = np.zeros((t_count, c, h, w, 3), dtype=np.uint8)
         for ti in range(t_count):
             for ci, di in enumerate(det_inds[ti]):
                 if di is not None:
                     can_crops[ti, ci] = unit_crop(di)
+        prep.end()
         probs = self._score_bucketed(
             mem_crops, can_crops, mem_boxes, can_boxes, normalize_ims
         )
@@ -665,6 +700,7 @@ class AssociationEngine:
         h, w = self.crop_hw
         out = []
         for start, end, b, pad, mask in self._chunks(mem_crops.shape[0]):
+            prep = profiling.begin("assoc.prep")
             gather, weights, crops_list = _dedup_gather(
                 det_inds, start, end, c, b, unit_crop)
             u = len(crops_list)
@@ -674,9 +710,11 @@ class AssociationEngine:
                 uniq[ui] = crop
             w_arr = np.zeros(u_pad, dtype=np.float32)
             w_arr[:u] = weights
+            mem_t = self._tensor(_padded(mem_crops, start, end, pad))
+            uniq_t = self._tensor(uniq)
+            prep.end()
             probs = self._probs(
-                self._tensor(_padded(mem_crops, start, end, pad)),
-                self._tensor(uniq),
+                mem_t, uniq_t,
                 _padded(mem_boxes, start, end, pad),
                 _padded(can_boxes, start, end, pad),
                 mask, normalize_ims, can_weights=w_arr, can_gather=gather,
@@ -697,6 +735,7 @@ class AssociationEngine:
         out = []
         for start, end, b, pad, mask in self._chunks(len(mem_entries)):
             n = end - start
+            prep = profiling.begin("assoc.prep")
             gather, weights, crops_list = _dedup_gather(
                 det_inds, start, end, c, b, unit_crop)
             u = len(crops_list)
@@ -714,9 +753,11 @@ class AssociationEngine:
             uniq_slots = np.zeros(u_pad, np.int64)
             uniq_slots[1:u] = slots[n * seq_len:]
             bank = self.bank.array
+            mem_t = bank[self._tensor(mem_slots)]
+            uniq_t = bank[self._tensor(uniq_slots)]
+            prep.end()
             probs = self._probs(
-                bank[self._tensor(mem_slots)],
-                bank[self._tensor(uniq_slots)],
+                mem_t, uniq_t,
                 _padded(mem_boxes, start, end, pad),
                 _padded(can_boxes, start, end, pad),
                 mask, normalize_ims, can_weights=w_arr, can_gather=gather,
@@ -729,9 +770,11 @@ class AssociationEngine:
         """Duplicated-candidate scoring, bucket-padded and chunked."""
         out = []
         for start, end, _b, pad, mask in self._chunks(mem_crops.shape[0]):
+            with profiling.span("assoc.prep"):
+                mem_t = self._tensor(_padded(mem_crops, start, end, pad))
+                can_t = self._tensor(_padded(can_crops, start, end, pad))
             probs = self._probs(
-                self._tensor(_padded(mem_crops, start, end, pad)),
-                self._tensor(_padded(can_crops, start, end, pad)),
+                mem_t, can_t,
                 _padded(mem_boxes, start, end, pad),
                 _padded(can_boxes, start, end, pad),
                 mask, normalize_ims,
@@ -793,6 +836,7 @@ class AssociationEngine:
         """uint8 BGR crops ``[N, h, w, 3]`` -> L2-normalized features
         ``[N, F]`` on the device (BN on the running statistics: each
         crop's feature is its own)."""
+        profiling.count("assoc.crops", crops.shape[0])
         _, feats = self.model.reid_encoder.model(
             self._prep(self._tensor(crops), normalize_ims))
         return feats
@@ -1041,7 +1085,9 @@ class AssociationEngine:
         ``arrays`` padded to its bucket, ``scorer(*padded, mask)``, the
         probability rows trimmed and concatenated."""
         out = []
-        for start, end, _b, pad, mask in self._chunks(t_count):
+        for start, end, b, pad, mask in self._chunks(t_count):
+            if profiling.tracing():
+                self._count_call(end - start, b, 0)
             probs = scorer(*(self._tensor(_padded(a, start, end, pad))
                              for a in arrays), self._tensor(mask))
             out.append(probs.cpu().numpy()[:end - start])

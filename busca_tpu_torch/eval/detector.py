@@ -56,6 +56,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from busca_tpu_torch.utils import profiling
+
 # ImageNet RGB statistics (the ValTransform defaults the reference evaluates
 # with, exps/transcenterdetr_base.py:327-333)
 IMAGENET_MEAN_RGB = (0.485, 0.456, 0.406)
@@ -288,7 +290,8 @@ class PipelinedFrameIO:
     def detect(self, frame) -> DetectorOutput:
         """One uint8 BGR frame (original resolution), or a
         :meth:`put_frame` upload."""
-        return self.wait(self.detect_async(frame))
+        with profiling.span("detector.frame"):
+            return self.wait(self.detect_async(frame))
 
     def wait_batch(self, handle: _Pending) -> list:
         """Wait for a :meth:`detect_batch_async` handle's copies and build
@@ -562,7 +565,8 @@ class YoloxDetector(PipelinedFrameIO):
         """One frame of each of B same-resolution sequences in one device
         step (one per replica after :meth:`shard_lockstep`); one
         :class:`DetectorOutput` per frame."""
-        return self.wait_batch(self.detect_batch_async(frames_bgr))
+        with profiling.span("detector.batch"):
+            return self.wait_batch(self.detect_batch_async(frames_bgr))
 
 
 def read_pth_state_dict(path: str) -> dict:

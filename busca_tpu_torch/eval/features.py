@@ -24,6 +24,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from busca_tpu_torch.utils import profiling
+
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
@@ -102,11 +104,12 @@ class ReidFeatureExtractor:
         return torch.cat(out) if len(out) > 1 else out[0]
 
     def __call__(self, crops) -> np.ndarray:
-        if not torch.is_tensor(crops):
-            crops = np.asarray(crops) if len(crops) else np.zeros(
-                (0,) + self.crop_hw + (3,), np.uint8)
-            crops = torch.from_numpy(np.ascontiguousarray(crops))
-        return self.features(crops).cpu().numpy()
+        with profiling.span("reid.extract"):
+            if not torch.is_tensor(crops):
+                crops = np.asarray(crops) if len(crops) else np.zeros(
+                    (0,) + self.crop_hw + (3,), np.uint8)
+                crops = torch.from_numpy(np.ascontiguousarray(crops))
+            return self.features(crops).cpu().numpy()
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "ReidFeatureExtractor":

@@ -48,6 +48,7 @@ from busca_tpu_torch.models.transformer import (
     dropout,
     get_activation,
 )
+from busca_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,11 +237,14 @@ class BuscaModel(nn.Module):
             if can_gather is not None:
                 can_feats = can_feats[can_gather.long()]
         else:
-            mem_feats, can_feats = self._reid_feats(
-                mem_crops, can_crops, b, l_mem, c, sample_mask, can_weights,
-                can_gather, mem_group, can_group, num_groups)
-        return self._decide(mem_feats, can_feats, mem_bboxes, can_bboxes,
-                            return_att, generator)
+            with profiling.span("assoc.encode", device=mem_bboxes):
+                mem_feats, can_feats = self._reid_feats(
+                    mem_crops, can_crops, b, l_mem, c, sample_mask,
+                    can_weights, can_gather, mem_group, can_group,
+                    num_groups)
+        with profiling.span("assoc.decide", device=mem_bboxes):
+            return self._decide(mem_feats, can_feats, mem_bboxes,
+                                can_bboxes, return_att, generator)
 
     def _reid_feats(self, mem_crops, can_crops, b, l_mem, c, sample_mask,
                     can_weights, can_gather, mem_group, can_group,

@@ -38,6 +38,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from busca_tpu_torch.serve.server import recv_msg, send_msg
+from busca_tpu_torch.utils import profiling
 
 
 class _Session:
@@ -48,6 +49,7 @@ class _Session:
         self.name = None
         # one in-flight frame at most (the protocol is request/response)
         self.pending_frame = None
+        self.queue_wait = None  # its serve.queue_wait span
         self.reply = None
         self.done = threading.Event()
 
@@ -86,6 +88,9 @@ class LockstepTrackingServer:
         self._sid = itertools.count(1)
         self._stop = False
         self._scheduler = None
+        # the last tick taken: its number, the active streams, and whether
+        # its timeout fired with streams still missing
+        self._tick = (0, 0, False)
 
     # -------------------------------------------------------------- lifecycle --
     def start_scheduler(self):
@@ -135,9 +140,13 @@ class LockstepTrackingServer:
             if self._stop:
                 return None
             batch = self._ready()
+            active = self._active_count()
+            tick = self._tick[0] + 1
+            self._tick = (tick, active, len(batch) < active)
             items = [(s, s.pending_frame) for s in batch]
             for s in batch:
                 s.pending_frame = None
+                s.queue_wait.end(rid=(tick, s.sid, s.frame_id + 1))
             return items
 
     def _scheduler_loop(self):
@@ -173,6 +182,16 @@ class LockstepTrackingServer:
                 s.done.set()
 
     def _run_tick_inner(self, items, serviced):
+        tick, active, partial = self._tick
+        attrs = ({"frames": len(items), "active": active, "timeout": partial}
+                 if profiling.tracing() else None)
+        # the tick's spans carry its number; each stream's update also its
+        # sid and frame id
+        with profiling.span("serve.tick", rid=(tick,), attrs=attrs), \
+                profiling.request((tick,)):
+            self._serve_tick(items, serviced, tick)
+
+    def _serve_tick(self, items, serviced, tick):
         from busca_tpu_torch.eval.runner import filter_output_tracks
         from busca_tpu_torch.trackers.base import service_deferred_updates
 
@@ -190,14 +209,15 @@ class LockstepTrackingServer:
             for (s, _), d in zip(group, dets):
                 s.frame_id += 1
                 args = (d.boxes_tlbr / d.scale, d.scores, d.scale, d.image)
-                if hasattr(s.tracker, "update_deferred"):
-                    gen = s.tracker.update_deferred(*args)
-                    try:
-                        pending.append((s.sid, gen, next(gen)))
-                    except StopIteration as e:
-                        onlines[s.sid] = e.value
-                else:
-                    onlines[s.sid] = s.tracker.update(*args)
+                with profiling.request((tick, s.sid, s.frame_id)):
+                    if hasattr(s.tracker, "update_deferred"):
+                        gen = s.tracker.update_deferred(*args)
+                        try:
+                            pending.append((s.sid, gen, next(gen)))
+                        except StopIteration as e:
+                            onlines[s.sid] = e.value
+                    else:
+                        onlines[s.sid] = s.tracker.update(*args)
             groups.append(group)
         if pending:
             # ONE grouped association serves every stream's third round,
@@ -311,6 +331,7 @@ class LockstepTrackingServer:
         sess.done.clear()
         sess.reply = None
         with self._lock:
+            sess.queue_wait = profiling.begin("serve.queue_wait")
             sess.pending_frame = frame
             self._lock.notify_all()
         sess.done.wait()

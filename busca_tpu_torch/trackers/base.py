@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 
 from busca_tpu_torch.core import hostmath
+from busca_tpu_torch.utils import profiling
 
 _KF = hostmath.HostKalman()
 
@@ -475,7 +476,9 @@ def extract_uint8_crops(frame, boxes_tlbr, crop_hw, bank=None,
     later in the association engine."""
     if frame is None or len(boxes_tlbr) == 0:
         return []
-    return host_crops(device_crops(frame, boxes_tlbr, crop_hw, device), bank)
+    with profiling.span("tracker.crops"):
+        return host_crops(device_crops(frame, boxes_tlbr, crop_hw, device),
+                          bank)
 
 
 def run_third_round(

@@ -44,6 +44,7 @@ from busca_tpu_torch.trackers.base import (
     ThirdRoundRequest,
     sub_tracks,
 )
+from busca_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -127,15 +128,17 @@ class ByteTracker:
           the activated output tracks.
         """
         gen = self._update_gen(bboxes_tlbr, scores, scale, frame)
-        try:
-            req = next(gen)
-            while True:
-                res = self._third_round(
-                    req.pool, req.considered, req.kalman_cands, req.thresh
-                )
-                req = gen.send(res)
-        except StopIteration as e:
-            return e.value
+        with profiling.span("tracker.update"):
+            try:
+                req = next(gen)
+                while True:
+                    res = self._third_round(
+                        req.pool, req.considered, req.kalman_cands,
+                        req.thresh
+                    )
+                    req = gen.send(res)
+            except StopIteration as e:
+                return e.value
 
     def update_deferred(
         self,
@@ -148,7 +151,9 @@ class ByteTracker:
         yields at most one :class:`ThirdRoundRequest` (serviced by the
         caller via ``gen.send((matches, u_track))``) and returns the output
         tracks via ``StopIteration.value``."""
-        return self._update_gen(bboxes_tlbr, scores, scale, frame)
+        return profiling.spanned_steps(
+            self._update_gen(bboxes_tlbr, scores, scale, frame),
+            "tracker.update")
 
     def set_warp_hint(self, warp_fn):
         """A zero-argument callable giving ``(cc, warp_2x3)`` for the next
@@ -244,6 +249,7 @@ class ByteTracker:
         # ---- round 1: high-score detections ---------------------------------
         pool = joint_tracks(tracked, self.lost)
         Track.multi_predict(pool)
+        match = profiling.begin("tracker.match")
         dists = hostmath.iou_distance(
             np.stack([t.tlbr for t in pool]) if pool else np.zeros((0, 4)),
             np.stack([d.tlbr for d in detections]) if detections else np.zeros((0, 4)),
@@ -253,6 +259,7 @@ class ByteTracker:
                 dists, np.array([d.score for d in detections])
             )
         matches, u_track, u_det = lap.linear_assignment(dists, cfg.match_thresh)
+        match.end()
 
         post = Track.multi_update_posterior(
             [(pool[it], detections[idet]) for it, idet in matches]
@@ -279,6 +286,7 @@ class ByteTracker:
         r_lost = [
             pool[i] for i in u_track if pool[i].state != TrackState.Tracked
         ]
+        match = profiling.begin("tracker.match")
         dists = hostmath.iou_distance(
             np.stack([t.tlbr for t in r_tracked]) if r_tracked else np.zeros((0, 4)),
             np.stack([d.tlbr for d in detections_second])
@@ -286,6 +294,7 @@ class ByteTracker:
             else np.zeros((0, 4)),
         )
         matches, u_track, _ = lap.linear_assignment(dists, 0.5)
+        match.end()
         post = Track.multi_update_posterior(
             [(r_tracked[it], detections_second[idet]) for it, idet in matches]
         )
@@ -345,6 +354,7 @@ class ByteTracker:
 
         # ---- unconfirmed tracks ---------------------------------------------
         detections = [detections[i] for i in u_det]
+        match = profiling.begin("tracker.match")
         dists = hostmath.iou_distance(
             np.stack([t.tlbr for t in unconfirmed]) if unconfirmed else np.zeros((0, 4)),
             np.stack([d.tlbr for d in detections]) if detections else np.zeros((0, 4)),
@@ -354,6 +364,7 @@ class ByteTracker:
                 dists, np.array([d.score for d in detections])
             )
         matches, u_unconfirmed, u_det = lap.linear_assignment(dists, 0.7)
+        match.end()
         post = Track.multi_update_posterior(
             [(unconfirmed[it], detections[idet]) for it, idet in matches]
         )

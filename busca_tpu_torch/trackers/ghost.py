@@ -62,6 +62,7 @@ from busca_tpu_torch.trackers.base import (
     run_third_round,
     ThirdRoundRequest,
 )
+from busca_tpu_torch.utils import profiling
 
 PROXY_REDUCERS = {
     "min": lambda d: d.min(axis=1),
@@ -292,15 +293,17 @@ class GhostTracker:
         frame: Optional[np.ndarray] = None,
     ) -> List[GhostTrack]:
         gen = self._update_gen(boxes_tlbr, scores, features, frame)
-        try:
-            req = next(gen)
-            while True:
-                res = self._third_round(
-                    req.pool, req.considered, req.kalman_cands, req.thresh
-                )
-                req = gen.send(res)
-        except StopIteration as e:
-            return e.value
+        with profiling.span("tracker.update"):
+            try:
+                req = next(gen)
+                while True:
+                    res = self._third_round(
+                        req.pool, req.considered, req.kalman_cands,
+                        req.thresh
+                    )
+                    req = gen.send(res)
+            except StopIteration as e:
+                return e.value
 
     def update_deferred(
         self,
@@ -311,7 +314,9 @@ class GhostTracker:
     ):
         """Deferred-third-round mode: yields at most one
         :class:`ThirdRoundRequest`, output via ``StopIteration.value``."""
-        return self._update_gen(boxes_tlbr, scores, features, frame)
+        return profiling.spanned_steps(
+            self._update_gen(boxes_tlbr, scores, features, frame),
+            "tracker.update")
 
     def set_warp_hint(self, warp_fn):
         """A zero-argument callable giving ``(cc, warp_2x3)`` for the next
@@ -436,6 +441,7 @@ class GhostTracker:
         num_active = len(act_ids)
 
         # ---- appearance distances (proxy reductions) -------------------------
+        match = profiling.begin("tracker.match")
         dist_cols = []
         for tid in act_ids:
             dist_cols.append(
@@ -449,6 +455,7 @@ class GhostTracker:
             dist = np.stack(dist_cols, axis=1)  # [num_dets, num_tracks]
         else:
             dist = np.zeros((n, len(dist_cols)))
+        match.end()
 
         self._update_thresholds(dist, num_active, len(inact_ids))
 
@@ -470,6 +477,7 @@ class GhostTracker:
                 dist = (1 - alpha) * dist + alpha * iou_dist
 
         # ---- forbid over-threshold entries, solve -----------------------------
+        match = profiling.begin("tracker.match")
         if dist.size:
             work = dist.copy()
             work[:, :num_active] = np.where(
@@ -485,6 +493,7 @@ class GhostTracker:
             rows, cols = lap.solve_dense(work)
         else:
             rows, cols = np.zeros(0, int), np.zeros(0, int)
+        match.end()
 
         all_ids = act_ids + inact_ids
         active_now: List[int] = []
@@ -626,9 +635,10 @@ class GhostTracker:
 
     def _kalman_candidates(self, pool, frame):
         boxes = np.array([t.pos for t in pool]).reshape(-1, 4)
-        crops_dev = device_crops(frame, boxes, self.cfg.crop_hw,
-                                 frame.device)
-        crops = host_crops(crops_dev, getattr(self.engine, "bank", None))
+        with profiling.span("tracker.crops"):
+            crops_dev = device_crops(frame, boxes, self.cfg.crop_hw,
+                                     frame.device)
+            crops = host_crops(crops_dev, getattr(self.engine, "bank", None))
         if self.feature_extractor is not None and len(crops):
             # the device crops go into the network without a host copy
             fresh = np.asarray(self.feature_extractor(crops_dev))
