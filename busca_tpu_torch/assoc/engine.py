@@ -9,6 +9,17 @@ call per power-of-two track bucket on the engine's device; padded lanes
 carry ``sample_mask=0`` and stay out of the ReID BN statistics.  Memory and
 candidate selection stays on the host.
 
+The batch-statistics ReID encodes only crops that carry BN weight: the
+unique candidates once each and the zero "missing slot" crop once, weighted
+by their multiplicity (``_dedup_gather``), and, on the memory side, each
+slot of a complete memory, every incomplete memory of a request sharing one
+zero crop; padding lanes encode nothing (:func:`_fold_memory`).  Identical
+inputs of one BN group give identical activations at every layer, and the
+BN statistics and the ReID's head still run over every slot
+(``models/reid.py::UnitRows``), so the numbers are the padded batch's, bit
+for bit where the convolutions give a crop the same bits in both batches
+(``FOLD_MIN_CROPS``).
+
 Reference semantics kept:
 - memory sampling incl. ``use_broader_memory`` even-stride re-sampling
   (network.py:247-279) and the ``track.scale`` rescale;
@@ -64,7 +75,7 @@ from busca_tpu_torch.models.busca import (
 )
 from busca_tpu_torch.models.reid import BatchNorm
 from busca_tpu_torch.utils import profiling
-from busca_tpu_torch.utils.padding import next_pow2
+from busca_tpu_torch.utils.padding import next_pow2, round_up
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 # reid_stats='auto': at or below this per-call track count one fused forward
@@ -74,6 +85,14 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
 # crossover.  Frozen BN numerics either way.
 AUTO_FUSED_MAX_T = 1
 INCOMPLETE_MEM_BBOX_TLWH = np.array([250.0, 250.0, 500.0, 500.0])
+# A batch-statistics call folds only where its unfolded ReID batch has at
+# least this many crops, and its folded batch is padded with zero crops to
+# a multiple of 8 of at least as many.  On the H100 the ResNet-50's 53 bf16
+# convolutions gave a crop the same bits in every batch of 99 to 2560
+# crops that a scan tried (cuDNN keeps its algorithms there), so such a
+# call's numbers stay the unfolded batch's bit for bit; smaller batches
+# switch algorithms with their size, and a crop's last bits with them.
+FOLD_MIN_CROPS = 128
 
 
 def _get_track_mem(track, seq_len: int, use_broader_memory: bool):
@@ -114,6 +133,48 @@ def _dedup_gather(det_inds, start, end, c, b, unit_crop):
             gather[ti - start, ci] = ui
             weights[ui] += 1.0
     return gather, weights, crops_list
+
+
+def _fold_memory(reliable, gather: np.ndarray, row0: int, unit0: int,
+                 fold: bool = True):
+    """The memory units of one request's rows, written into ``gather``'s
+    rows ``row0...`` (``[B, L]`` slot -> unit): each slot of a complete
+    memory is a unit of its own, in order from ``unit0``; folded, every
+    slot of the request's incomplete memories (all zero crops,
+    network.py:300-308) maps to one zero unit after them, else each slot
+    keeps a unit (a zero crop).  Padding rows are the caller's.  Returns
+    (the rows whose slots read their own crops, whether there is a zero
+    unit)."""
+    seq_len = gather.shape[1]
+    reliable = np.asarray(reliable, dtype=bool)
+    own = np.flatnonzero(reliable) if fold else np.arange(len(reliable))
+    n = len(own) * seq_len
+    gather[row0 + own] = unit0 + np.arange(n).reshape(len(own), seq_len)
+    has_zero = len(own) < len(reliable)
+    if has_zero:
+        gather[row0 + np.flatnonzero(~reliable)] = unit0 + n
+    return own, has_zero
+
+
+def _fold_plan(n_slots: int, u: int) -> Tuple[bool, int]:
+    """Whether a model call of ``n_slots`` memory slots (padding rows
+    included) and ``u`` unique candidate units folds, and its candidates'
+    rows in the BN statistics and the ReID head: ``next_pow2(u, 8)``, the
+    row count its crop batch had unfolded (a product's reduction may split
+    by its length, so the sums keep that batch's order; rows past the
+    candidates weigh 0)."""
+    rows = next_pow2(u, min_bucket=8)
+    return n_slots + rows >= FOLD_MIN_CROPS, rows
+
+
+def _can_crops(n_units: int, u: int, rows: int, fold: bool) -> int:
+    """The candidate crops the ReID encodes after ``n_units`` memory
+    crops: unfolded, the call's ``rows``; folded, the ``u`` units and zero
+    crops up to a batch that is a multiple of 8 and at least
+    ``FOLD_MIN_CROPS``."""
+    if not fold:
+        return rows
+    return max(round_up(n_units + u, 8), FOLD_MIN_CROPS) - n_units
 
 
 def _padded(x: np.ndarray, start: int, end: int, pad: int) -> np.ndarray:
@@ -240,8 +301,8 @@ class AssociationEngine:
 
     def _scores(self, mem_crops, can_crops, mem_boxes, can_boxes, mask,
                 normalize_ims, can_weights=None, can_gather=None,
-                mem_group=None, can_group=None,
-                num_groups=1) -> torch.Tensor:
+                mem_group=None, can_group=None, num_groups=1,
+                mem_gather=None) -> torch.Tensor:
         """One model call on device tensors: softmax probabilities
         ``[B, C + extras]`` on the device (what
         ``serve/export.py::export_associate_scorer`` traces)."""
@@ -251,44 +312,51 @@ class AssociationEngine:
             mem_boxes, can_boxes, mask,
             can_weights=can_weights, can_gather=can_gather,
             mem_group=mem_group, can_group=can_group,
-            num_groups=num_groups,
+            num_groups=num_groups, mem_gather=mem_gather,
         )
         return torch.softmax(logits, dim=-1)
 
     @torch.inference_mode()
     def _probs(self, mem_crops, can_crops, mem_boxes, can_boxes, mask,
                normalize_ims, can_weights=None, can_gather=None,
-               mem_group=None, can_group=None, num_groups=1) -> np.ndarray:
+               mem_group=None, can_group=None, num_groups=1,
+               mem_gather=None) -> np.ndarray:
         """One model call; crops are device tensors, the rest numpy.
-        Returns softmax probabilities ``[B, C + extras]`` on the host."""
+        Returns softmax probabilities ``[B, C + extras]`` on the host.
+        With ``mem_gather`` the memory crops are ``[U, 1, H, W, 3]`` units
+        (one slot each, so ``shape[0] * shape[1]`` counts the memory crops
+        encoded, as with ``[B, L, H, W, 3]``)."""
 
         def opt(x):
             return None if x is None else self._tensor(x)
 
         if profiling.tracing():
             # a crop is the last three dimensions of either batch
-            self._count_call(int(mask.sum()), mem_crops.shape[0],
-                             mem_crops.shape[:-3].numel()
-                             + can_crops.shape[:-3].numel())
+            rows, units = mask.shape[0], mem_crops.shape[:-3].numel()
+            self._count_call(int(mask.sum()), rows,
+                             units + can_crops.shape[:-3].numel(),
+                             rows * mem_boxes.shape[1] - units)
         with profiling.span("assoc.prep"):
             args = (self._tensor(mem_boxes), self._tensor(can_boxes),
                     self._tensor(mask))
             kw = dict(can_weights=opt(can_weights),
                       can_gather=opt(can_gather), mem_group=opt(mem_group),
-                      can_group=opt(can_group))
+                      can_group=opt(can_group), mem_gather=opt(mem_gather))
         probs = self._scores(mem_crops, can_crops, *args, normalize_ims,
                              num_groups=num_groups, **kw)
         with profiling.span("assoc.readback"):
             return probs.cpu().numpy()
 
     @staticmethod
-    def _count_call(tracks: int, rows: int, crops: int):
+    def _count_call(tracks: int, rows: int, crops: int, mem_folded: int = 0):
         """The third round's counters at one model call: the tracks it
-        scores, the track rows it launches (bucket padding included) and
-        the crops through the ReID ResNet-50."""
+        scores, the track rows it launches (bucket padding included), the
+        crops through the ReID ResNet-50, and the memory slots of its rows
+        (padding included) that the ResNet did not encode."""
         profiling.count("assoc.tracks", tracks)
         profiling.count("assoc.rows", rows)
         profiling.count("assoc.crops", crops)
+        profiling.count("assoc.mem_folded", mem_folded)
 
     # --------------------------------------------------------------- api --
     def associate(
@@ -417,19 +485,17 @@ class AssociationEngine:
     def _score_grouped(self, preps, normalize_ims):
         """One model call over every prepped request, the track batch
         padded to its bucket and ``next_pow2(r)`` BN groups per kind.  Each
-        request has its own unique candidate units and its own zero
-        "missing slot" unit, so its weights land in its own group.  Returns
-        the raw probabilities and ``(i, row0, t_count, reliable, det_inds,
-        num_available, n_cols)`` per request."""
+        request has its own unique candidate units, its own zero "missing
+        slot" unit and, folded, its own zero memory unit
+        (:func:`_fold_memory`), so its weights land in its own group.
+        Returns the raw probabilities and ``(i, row0, t_count, reliable,
+        det_inds, num_available, n_cols)`` per request."""
         prep = profiling.begin("assoc.prep")
         seq_len, c = self.seq_len, self.num_candidates
         h, w = self.crop_hw
         t_total = sum(req[8] for _, req, _ in preps)
         b = self._bucket(t_total)
         banked = self.banked
-        mem_entries: list = []
-        if not banked:
-            mem_crops = np.zeros((b, seq_len, h, w, 3), np.uint8)
         mem_boxes = np.zeros((b, seq_len, 4), np.float32)
         can_boxes = np.zeros((b, c, 4), np.float32)
         mask = np.zeros(b, np.float32)
@@ -462,10 +528,6 @@ class AssociationEngine:
                     ui = unit_to_idx[di]
                     gather[row + ti, ci] = ui
                     uniq_weights[ui] += 1.0
-            if banked:
-                mem_entries.extend(m_crops)
-            else:
-                mem_crops[row:row + t_count] = m_crops
             mem_boxes[row:row + t_count] = m_boxes
             can_boxes[row:row + t_count] = c_boxes
             mask[row:row + t_count] = 1.0
@@ -474,56 +536,78 @@ class AssociationEngine:
                           num_available, ndt))
             row += t_count
         u = len(uniq_crops)
-        u_pad = next_pow2(u, min_bucket=8)
-        w_arr = np.zeros(u_pad, np.float32)
+        fold, u_rows = _fold_plan(b * seq_len, u)
+        # the memory units, request by request, then (unfolded) the
+        # padding rows' zero crops
+        mem_gather = np.zeros((b, seq_len), np.int64)
+        mem_src = []  # (the request's crops, its rows read, first unit)
+        n_units = 0
+        for (_, req, _), (_, row0, *_rest) in zip(preps, spans):
+            own, has_zero = _fold_memory(req[2], mem_gather, row0, n_units,
+                                         fold)
+            mem_src.append((req[0], own, n_units))
+            n_units += len(own) * seq_len + has_zero
+        if not fold:
+            mem_gather[row:] = n_units + np.arange(
+                (b - row) * seq_len).reshape(b - row, seq_len)
+            n_units = b * seq_len
+        u_pad = _can_crops(n_units, u, u_rows, fold)
+        w_arr = np.zeros(u_rows, np.float32)
         w_arr[:u] = uniq_weights
-        g_arr = np.zeros(u_pad, np.int64)
+        g_arr = np.zeros(u_rows, np.int64)
         g_arr[:u] = uniq_group
         if banked:
             flat: list = []
-            for e in mem_entries:
-                flat.extend(e if e is not None else [None] * seq_len)
-            flat.extend(uniq_crops)  # the zero units resolve to slot 0
-            slots = self.bank.resolve(flat)
-            n_mem = row * seq_len
-            mem_slots = np.zeros((b, seq_len), np.int64)
-            mem_slots[:row] = slots[:n_mem].reshape(row, seq_len)
+            for entries, own, k in mem_src:
+                flat.extend([None] * (k - len(flat)))  # a zero unit
+                for ti in own:
+                    e = entries[ti]
+                    flat.extend(e if e is not None else [None] * seq_len)
+            flat.extend([None] * (n_units - len(flat)))
+            # the zero units resolve to slot 0
+            slots = self.bank.resolve(flat + uniq_crops)
             uniq_slots = np.zeros(u_pad, np.int64)
-            uniq_slots[:u] = slots[n_mem:]
+            uniq_slots[:u] = slots[n_units:]
             bank = self.bank.array
-            mem_t = bank[self._tensor(mem_slots)]
+            mem_t = bank[self._tensor(slots[:n_units].reshape(n_units, 1))]
             uniq_t = bank[self._tensor(uniq_slots)]
         else:
+            units = np.zeros((n_units, 1, h, w, 3), np.uint8)
+            for m_crops, own, k in mem_src:
+                np.take(m_crops, own, axis=0,
+                        out=units[k:k + len(own) * seq_len].reshape(
+                            (len(own), seq_len, h, w, 3)))
             uniq = np.zeros((u_pad, h, w, 3), np.uint8)
             for ui, crop in enumerate(uniq_crops):
                 if crop is not None:
                     uniq[ui] = crop
-            mem_t, uniq_t = self._tensor(mem_crops), self._tensor(uniq)
+            mem_t, uniq_t = self._tensor(units), self._tensor(uniq)
         prep.end()
         probs = self._probs(
             mem_t, uniq_t, mem_boxes, can_boxes, mask, normalize_ims,
             can_weights=w_arr, can_gather=gather, mem_group=mem_group,
             can_group=g_arr, num_groups=next_pow2(len(preps)),
+            mem_gather=mem_gather,
         )
         return probs, spans
 
     def _score_prepped(self, req, normalize_ims) -> np.ndarray:
         """Raw probabilities ``[T, C + extras]`` of one prepped request."""
-        (mem_crops, mem_boxes, _reliable, det_inds, can_boxes, unit_crop,
+        (mem_crops, mem_boxes, reliable, det_inds, can_boxes, unit_crop,
          _num_available, _d_count, t_count) = req
         if self.reid_stats in ("frozen", "auto"):
-            return self._score_frozen(mem_crops, mem_boxes, det_inds,
-                                      can_boxes, unit_crop, t_count,
-                                      normalize_ims)
+            return self._score_frozen(mem_crops, mem_boxes, reliable,
+                                      det_inds, can_boxes, unit_crop,
+                                      t_count, normalize_ims)
         if self.banked:
             return self._score_bucketed_unique_b(
-                mem_crops, det_inds, unit_crop, mem_boxes, can_boxes,
-                normalize_ims,
+                mem_crops, reliable, det_inds, unit_crop, mem_boxes,
+                can_boxes, normalize_ims,
             )
         if self.dedup_candidates and self.debug_dir is None:
             return self._score_bucketed_unique(
-                mem_crops, det_inds, unit_crop, mem_boxes, can_boxes,
-                normalize_ims,
+                mem_crops, reliable, det_inds, unit_crop, mem_boxes,
+                can_boxes, normalize_ims,
             )
         c = self.num_candidates
         h, w = self.crop_hw
@@ -690,12 +774,32 @@ class AssociationEngine:
             mask[:n] = 1.0
             yield start, end, b, b - n, mask
 
-    def _score_bucketed_unique(self, mem_crops, det_inds, unit_crop,
-                               mem_boxes, can_boxes,
+    def _chunk_memory(self, reliable, start, end, b, u):
+        """A chunk's memory units (:func:`_fold_memory`) beside ``u``
+        unique candidates: ``([B, L] gather, the rows whose slots read
+        their own crops, memory units, candidate crops, candidate rows)``;
+        unfolded, the padding rows' zero crops are units too."""
+        seq_len, n = self.seq_len, end - start
+        fold, u_rows = _fold_plan(b * seq_len, u)
+        mem_gather = np.zeros((b, seq_len), np.int64)
+        own, has_zero = _fold_memory(reliable[start:end], mem_gather, 0, 0,
+                                     fold)
+        n_units = len(own) * seq_len + has_zero
+        if not fold:
+            mem_gather[n:] = n_units + np.arange(
+                (b - n) * seq_len).reshape(b - n, seq_len)
+            n_units = b * seq_len
+        return (mem_gather, own, n_units,
+                _can_crops(n_units, u, u_rows, fold), u_rows)
+
+    def _score_bucketed_unique(self, mem_crops, reliable, det_inds,
+                               unit_crop, mem_boxes, can_boxes,
                                normalize_ims) -> np.ndarray:
         """Dedup scoring: per chunk, the unique candidate units once (index
         0 = the zero "missing slot" crop, weighted by the number of missing
-        slots) and a ``[B, C]`` gather map."""
+        slots) and a ``[B, C]`` gather map, and the chunk's memory units
+        (:func:`_fold_memory`) with a ``[B, L]`` gather map."""
+        seq_len = self.seq_len
         c = can_boxes.shape[1]
         h, w = self.crop_hw
         out = []
@@ -704,13 +808,22 @@ class AssociationEngine:
             gather, weights, crops_list = _dedup_gather(
                 det_inds, start, end, c, b, unit_crop)
             u = len(crops_list)
-            u_pad = next_pow2(u, min_bucket=8)
+            mem_gather, own, n_units, u_pad, u_rows = self._chunk_memory(
+                reliable, start, end, b, u)
             uniq = np.zeros((u_pad, h, w, 3), dtype=np.uint8)
             for ui, crop in enumerate(crops_list[1:], start=1):
                 uniq[ui] = crop
-            w_arr = np.zeros(u_pad, dtype=np.float32)
+            w_arr = np.zeros(u_rows, dtype=np.float32)
             w_arr[:u] = weights
-            mem_t = self._tensor(_padded(mem_crops, start, end, pad))
+            n_own = len(own) * seq_len
+            if n_own == n_units:  # every unit a crop of the chunk's rows
+                units = mem_crops[start:end].reshape((n_own, 1, h, w, 3))
+            else:
+                units = np.zeros((n_units, 1, h, w, 3), np.uint8)
+                np.take(mem_crops, start + own, axis=0,
+                        out=units[:n_own].reshape((len(own), seq_len, h, w,
+                                                   3)))
+            mem_t = self._tensor(units)
             uniq_t = self._tensor(uniq)
             prep.end()
             probs = self._probs(
@@ -718,42 +831,42 @@ class AssociationEngine:
                 _padded(mem_boxes, start, end, pad),
                 _padded(can_boxes, start, end, pad),
                 mask, normalize_ims, can_weights=w_arr, can_gather=gather,
+                mem_gather=mem_gather,
             )
             out.append(probs[:end - start])
         return np.concatenate(out, axis=0)
 
-    def _score_bucketed_unique_b(self, mem_entries, det_inds, unit_crop,
-                                 mem_boxes, can_boxes,
+    def _score_bucketed_unique_b(self, mem_entries, reliable, det_inds,
+                                 unit_crop, mem_boxes, can_boxes,
                                  normalize_ims) -> np.ndarray:
         """Banked dedup scoring: one :meth:`DeviceCropBank.resolve` per chunk
-        covers the memory crops and the unique candidate units; the crops
+        covers the memory units and the unique candidate units; the crops
         are gathered from the device bank by slot.  Numerics equal
         :meth:`_score_bucketed_unique` (the bank holds the same uint8
-        crops)."""
+        crops, the units are the same)."""
         seq_len = self.seq_len
         c = can_boxes.shape[1]
         out = []
         for start, end, b, pad, mask in self._chunks(len(mem_entries)):
-            n = end - start
             prep = profiling.begin("assoc.prep")
             gather, weights, crops_list = _dedup_gather(
                 det_inds, start, end, c, b, unit_crop)
             u = len(crops_list)
-            u_pad = next_pow2(u, min_bucket=8)
-            w_arr = np.zeros(u_pad, dtype=np.float32)
+            mem_gather, own, n_units, u_pad, u_rows = self._chunk_memory(
+                reliable, start, end, b, u)
+            w_arr = np.zeros(u_rows, dtype=np.float32)
             w_arr[:u] = weights
             flat: list = []
-            for ti in range(start, end):
-                e = mem_entries[ti]
+            for ti in own:
+                e = mem_entries[start + ti]
                 flat.extend(e if e is not None else [None] * seq_len)
+            flat.extend([None] * (n_units - len(flat)))  # zero crops: slot 0
             flat.extend(crops_list[1:])
             slots = self.bank.resolve(flat)
-            mem_slots = np.zeros((b, seq_len), np.int64)
-            mem_slots[:n] = slots[: n * seq_len].reshape(n, seq_len)
             uniq_slots = np.zeros(u_pad, np.int64)
-            uniq_slots[1:u] = slots[n * seq_len:]
+            uniq_slots[1:u] = slots[n_units:]
             bank = self.bank.array
-            mem_t = bank[self._tensor(mem_slots)]
+            mem_t = bank[self._tensor(slots[:n_units].reshape(n_units, 1))]
             uniq_t = bank[self._tensor(uniq_slots)]
             prep.end()
             probs = self._probs(
@@ -761,8 +874,9 @@ class AssociationEngine:
                 _padded(mem_boxes, start, end, pad),
                 _padded(can_boxes, start, end, pad),
                 mask, normalize_ims, can_weights=w_arr, can_gather=gather,
+                mem_gather=mem_gather,
             )
-            out.append(probs[:n])
+            out.append(probs[:end - start])
         return np.concatenate(out, axis=0)
 
     def _score_bucketed(self, mem_crops, can_crops, mem_boxes, can_boxes,
@@ -783,16 +897,17 @@ class AssociationEngine:
         return np.concatenate(out, axis=0)
 
     # ------------------------------------------------ frozen-stats scoring --
-    def _score_frozen(self, mem_crops, mem_boxes, det_inds, can_boxes,
-                      unit_crop, t_count, normalize_ims) -> np.ndarray:
+    def _score_frozen(self, mem_crops, mem_boxes, reliable, det_inds,
+                      can_boxes, unit_crop, t_count,
+                      normalize_ims) -> np.ndarray:
         """Frozen and auto branches of :meth:`_score_prepped`
         (busca_tpu/assoc/engine.py:473-508): ``[T, C + extras]``."""
         if self.reid_stats == "auto" and t_count <= self.auto_fused_max_t:
             # a tiny call: one fused forward (BN on the running statistics
             # there too, so the numbers are the cached path's)
             return self._score_bucketed_unique(
-                self._stack_mem_lists(mem_crops), det_inds, unit_crop,
-                mem_boxes, can_boxes, normalize_ims)
+                self._stack_mem_lists(mem_crops), reliable, det_inds,
+                unit_crop, mem_boxes, can_boxes, normalize_ims)
         return self._frozen_scores(
             [(mem_crops, mem_boxes, None, det_inds, can_boxes, unit_crop,
               None, None, t_count)], normalize_ims)

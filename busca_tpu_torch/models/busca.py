@@ -41,7 +41,7 @@ from torch import nn
 
 from busca_tpu_torch.models import encodings
 from busca_tpu_torch.models.precision import compute_dtype
-from busca_tpu_torch.models.reid import ReIDResNet
+from busca_tpu_torch.models.reid import ReIDResNet, UnitRows
 from busca_tpu_torch.models.transformer import (
     TorchLinear,
     TransformerEncoder,
@@ -191,12 +191,14 @@ class BuscaModel(nn.Module):
         generator: Optional[torch.Generator] = None,
         mem_feats: Optional[torch.Tensor] = None,
         can_feats: Optional[torch.Tensor] = None,
+        mem_gather: Optional[torch.Tensor] = None,
     ):
         """Score candidates for a batch of tracks.
 
         Args:
-          mem_crops: ``[B, L_mem, H, W, 3]`` normalized RGB memory crops
-            (None with ``mem_feats``).
+          mem_crops: ``[B, L_mem, H, W, 3]`` normalized RGB memory crops,
+            or with ``mem_gather`` the memory units (None with
+            ``mem_feats``).
           can_crops: ``[B, C, H, W, 3]`` normalized RGB candidate crops, or
             in deduplicated mode ``[U, H, W, 3]`` unique candidate crops
             (None with ``can_feats``).
@@ -207,7 +209,10 @@ class BuscaModel(nn.Module):
           can_weights / can_gather: deduplicated-candidate mode: the unique
             crops' occurrence counts ``[U]`` (the BN weights, so statistics
             equal the duplicated batch's) and the per-slot index map
-            ``[B, C]``.
+            ``[B, C]``.  With ``mem_gather`` the candidate crops and their
+            rows (``can_weights``, ``can_group``) may differ in number:
+            rows past the crops weigh 0, crops past the rows are padding
+            that no row reads.
           mem_group / can_group / num_groups: several independent
             association calls (one per lockstep sequence) in one forward:
             ``mem_group [B]`` and ``can_group [U or B]`` give each track and
@@ -223,6 +228,17 @@ class BuscaModel(nn.Module):
             with frozen BN statistics, where a crop's feature does not
             depend on its batch (the engine's ``reid_stats='frozen'``).
             Both or neither.
+          mem_gather: memory units, as ``can_gather`` for candidates:
+            ``mem_crops`` holds ``U_mem`` unit crops (any leading shape,
+            flattened) and ``mem_gather [B, L_mem]`` each slot's unit.  The
+            ReID's convolutions run on each unit once; its BN statistics
+            are still taken over every slot (padded lanes weigh 0), each
+            slot's group as above, and its head runs per slot
+            (:class:`~busca_tpu_torch.models.reid.UnitRows`), so the
+            numbers are the ``[B, L_mem]`` batch's (a zero crop that stands
+            for ``k`` slots counts ``k`` times).  A unit is normalized with
+            the group of the slots that carry its weight (group 0 if none
+            does).
 
         Returns:
           logits ``[B, C + extras]`` (and the attention list).
@@ -241,19 +257,21 @@ class BuscaModel(nn.Module):
                 mem_feats, can_feats = self._reid_feats(
                     mem_crops, can_crops, b, l_mem, c, sample_mask,
                     can_weights, can_gather, mem_group, can_group,
-                    num_groups)
+                    num_groups, mem_gather)
         with profiling.span("assoc.decide", device=mem_bboxes):
             return self._decide(mem_feats, can_feats, mem_bboxes,
                                 can_bboxes, return_att, generator)
 
     def _reid_feats(self, mem_crops, can_crops, b, l_mem, c, sample_mask,
                     can_weights, can_gather, mem_group, can_group,
-                    num_groups):
+                    num_groups, mem_gather=None):
         """The features ``([B, L_mem, F], [B, C, F])`` of ONE ReID pass over
         memory + candidate crops; the [N, 2 * groups] weights (column r =
         request r's memory, column groups + r its candidates, zero rows =
         padded lanes) keep the reference's per-group BN statistics
-        (busca_tpu/models/busca.py:240-264)."""
+        (busca_tpu/models/busca.py:240-264).  With ``mem_gather`` the pass
+        runs on the memory units and the weights are over the slots they
+        stand for (:class:`~busca_tpu_torch.models.reid.UnitRows`)."""
         dev = mem_crops.device
         n_mem = b * l_mem
         if can_gather is not None:
@@ -267,10 +285,12 @@ class BuscaModel(nn.Module):
         w_mem = (sample_mask.to(torch.float32).repeat_interleave(l_mem)
                  if sample_mask is not None
                  else torch.ones(n_mem, device=dev))
-        flat = torch.cat(
-            [mem_crops.reshape((n_mem,) + mem_crops.shape[2:]), can_flat],
-            dim=0,
-        )
+        if mem_gather is not None:
+            mem_flat = mem_crops.reshape((-1,) + mem_crops.shape[-3:])
+        else:
+            mem_flat = mem_crops.reshape((n_mem,) + mem_crops.shape[2:])
+        u_mem = mem_flat.shape[0]
+        flat = torch.cat([mem_flat, can_flat], dim=0)
         r = int(num_groups)
         mem_cols = (torch.zeros(n_mem, dtype=torch.long, device=dev)
                     if mem_group is None
@@ -280,15 +300,29 @@ class BuscaModel(nn.Module):
         elif mem_group is not None and can_gather is None:
             can_src = mem_group.long()
         else:
-            can_src = torch.zeros(can_flat.shape[0], dtype=torch.long,
+            can_src = torch.zeros(w_can.shape[0], dtype=torch.long,
                                   device=dev)
         can_cols = (can_src.repeat_interleave(c)
                     if can_gather is None and can_src.shape[0] == b
                     else can_src)
-        group_mask = torch.zeros(flat.shape[0], 2 * r, device=dev)
+        n_rows = n_mem + w_can.shape[0]
+        group_mask = torch.zeros(n_rows, 2 * r, device=dev)
         group_mask[torch.arange(n_mem, device=dev), mem_cols] = w_mem
-        group_mask[torch.arange(n_mem, flat.shape[0], device=dev),
+        group_mask[torch.arange(n_mem, n_rows, device=dev),
                    can_cols + r] = w_can
+        if mem_gather is not None:
+            # each slot's row of the statistics reads its unit; a unit
+            # takes the group that its slots' weights fall in
+            can_rows = torch.clamp(
+                torch.arange(w_can.shape[0], device=dev),
+                max=can_flat.shape[0] - 1)  # rows past the crops weigh 0
+            rows = torch.cat([mem_gather.long().reshape(-1),
+                              u_mem + can_rows])
+            unit_w = torch.zeros(flat.shape[0], 2 * r, device=dev)
+            unit_w.index_add_(0, rows, group_mask)
+            group_mask = UnitRows(rows, group_mask,
+                                  torch.argmax(unit_w, dim=-1))
+        # with UnitRows the features come back one per row
         _, feats = self.reid_encoder.model(flat, group_mask)
         mem_feats = feats[:n_mem].reshape(b, l_mem, -1)
         if can_gather is not None:

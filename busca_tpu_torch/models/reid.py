@@ -25,7 +25,7 @@ reference's, so a reference state dict (``reid_encoder.model.*`` of
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +34,22 @@ from busca_tpu_torch.models.precision import Conv2d
 from busca_tpu_torch.models.transformer import TorchLinear
 
 PRETRAINED_SIZE = (384, 128)  # (H, W) crop size the weights were trained with
+
+
+class UnitRows(NamedTuple):
+    """The ``sample_mask`` of a batch of unique crops ("units") that stands
+    for a larger batch in which some crops repeat: ``rows [R]`` the unit of
+    each row of that batch, ``weights [R, G]`` each row's one-hot group
+    weights (zero rows = padded), ``ids [N]`` the group whose statistics
+    normalize each unit.  BN statistics are taken over the rows, from the
+    units' per-channel sums, and :class:`ReIDResNet` runs its head (the
+    linears and the L2 norm after the pooling) on the rows: the statistics
+    and the ``R`` outputs are the larger batch's, summed and multiplied in
+    the same order and shapes, while the convolutions run on the units."""
+
+    rows: torch.Tensor
+    weights: torch.Tensor
+    ids: torch.Tensor
 
 
 class BatchNorm(nn.Module):
@@ -46,7 +62,9 @@ class BatchNorm(nn.Module):
     - ``[N]`` weights: one statistics group over the weighted samples;
     - ``[N, G]`` one-hot group weights (zero rows = padded): statistics per
       group, each sample normalized with its own group's statistics (rows
-      with no weight take group 0).
+      with no weight take group 0);
+    - :class:`UnitRows`: the ``[R, G]`` case over the rows of a larger
+      batch that the ``N`` samples stand for.
 
     With ``use_batch_stats=False`` the stored running statistics are used
     (torch eval mode).  Works on ``[N, C, ...]`` activations.
@@ -135,6 +153,9 @@ class BatchNorm(nn.Module):
                 self._record(torch.full((), n), mean * n,
                              (var + mean * mean) * n)
         else:
+            rows = ids = None
+            if isinstance(sample_mask, UnitRows):
+                rows, sample_mask, ids = sample_mask
             spatial_axes = tuple(range(2, x.dim()))
             spatial = 1
             for s in x.shape[2:]:
@@ -144,6 +165,8 @@ class BatchNorm(nn.Module):
                 s2 = (xf * xf).sum(dim=spatial_axes)
             else:
                 s1, s2 = xf, xf * xf
+            if rows is not None:
+                s1, s2 = s1[rows], s2[rows]  # [R, C]
             w = sample_mask.to(torch.float32)
             if w.dim() == 1:
                 cnt, t1, t2 = self._global(w.sum(), w @ s1, w @ s2)
@@ -160,7 +183,8 @@ class BatchNorm(nn.Module):
                 ex2_g = t2_g / denom_g[:, None]
                 var_g = torch.clamp(ex2_g - mean_g * mean_g, min=0.0)
                 inv_g = torch.reciprocal(torch.sqrt(var_g + self.eps))
-                ids = torch.argmax(w, dim=-1)  # zero rows -> group 0
+                if ids is None:
+                    ids = torch.argmax(w, dim=-1)  # zero rows -> group 0
                 if self.calib is not None:
                     m = w.sum(1)  # a sample's multiplicity
                     self._record(*self._global(m.sum() * spatial, m @ s1,
@@ -307,7 +331,8 @@ class ReIDResNet(nn.Module):
                 output_option: str = "plain"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x``: ``[N, H, W, 3]`` normalized NHWC crops; ``sample_mask``:
-        ``[N]`` or ``[N, G]`` BN statistics weights."""
+        ``[N]`` or ``[N, G]`` BN statistics weights, or :class:`UnitRows`
+        (the outputs are then one per row)."""
         # busca_tpu/models/reid.py:225: x.astype(dtype) at entry
         x = x.to(self.compute_dtype).permute(0, 3, 1, 2).contiguous()
         tp = self.tp
@@ -320,6 +345,8 @@ class ReIDResNet(nn.Module):
         fc7 = x.amax(dim=(2, 3)).to(torch.float32)  # [N, 2048]
         if tp is not None:
             fc7 = tp.whole(fc7, (self.red or self.fc).in_features)
+        if isinstance(sample_mask, UnitRows):
+            fc7 = fc7[sample_mask.rows]  # [R, 2048]
         if self.red is not None:
             fc7 = self.red(fc7)
         logits = self.fc(fc7)

@@ -303,8 +303,8 @@ def export_associate_scorer(engine, bucket: int, u_pad: int, out_dir: str,
                             *, bake_weights: bool = True,
                             normalize_ims: bool = True) -> dict:
     """Export the engine's dedup scorer at one ``(bucket, u_pad)`` shape:
-    the model call of ``assoc/engine.py::_score_bucketed_unique`` (the
-    reference's hot loop is busca/network.py:176-244).  Memory crops
+    the unfolded model call of ``assoc/engine.py::_score_bucketed_unique``
+    (the reference's hot loop is busca/network.py:176-244).  Memory crops
     ``[B, L, H, W, 3]`` uint8, ``[u_pad]`` unique candidate crops with
     their occurrence weights and a ``[B, C]`` int32 gather map, the boxes
     and the lane mask -> ``[B, num_choices]`` softmax probabilities.  A
