@@ -2,13 +2,14 @@
 reference (``benchmark/benchref``), after the window, with the program's
 state freed.
 
-The numbers compared, each against the configuration's limit:
+The numbers compared, each against the configuration's limit (a
+detector's and an extractor's come from their parts, ``bmk/parts.py``):
 
-- ``det_box_rel`` / ``det_score`` / ``det_unmatched``: a sample of the
-  detector's calls (frames drawn from the seed): each frame's rows against
-  the reference detector on the same frame (largest box-corner gap over
-  the box's larger side, largest score gap over matched rows, rows left
-  unmatched);
+- the detector's, for YOLOX ``det_box_rel`` / ``det_score`` /
+  ``det_unmatched``: a sample of the detector's calls (frames drawn from
+  the seed): each frame's rows against the reference detector on the same
+  frame (largest box-corner gap over the box's larger side, largest score
+  gap over matched rows, rows left unmatched);
 - ``crop_gap``: a sample of the trackers' crop calls (K1 on the card)
   against the plain crop of the same frame and boxes;
 - ``prob_gap``: a sample of the third rounds, and the largest, each worked
@@ -17,11 +18,12 @@ The numbers compared, each against the configuration's limit:
   program's probabilities before and after its post-processing against
   the reference's (a request answered with another's rows, or scored on
   the wrong memory, fails here);
-- ``feat_rel``: a sample of frames' detection features against the
-  reference ReID on the plain crops of the frame at the detections' boxes
-  (relative to the largest reference feature);
+- the extractor's, for the ReID ``feat_rel``: a sample of frames'
+  detection features against the reference ReID on the plain crops of the
+  frame at the detections' boxes (relative to the largest reference
+  feature);
 - ``track_frames``: every stream's replied tracks, frame by frame, against
-  the reference tracker driven by the same detections and features, whose
+  the reference tracker (the tracker's part) driven by the same detections and features, whose
   third round is given the program's own results for the same request
   (ids compared after relabelling by first appearance, boxes exactly): it
   follows the program step by step, and ``prob_gap`` checks the step it
@@ -37,7 +39,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from bmk import weights
+from bmk import parts, weights
 
 
 class PixelFree:
@@ -121,34 +123,28 @@ def relabel(frames: List[list]) -> List[list]:
     return out
 
 
-def _ref_tracker(config: dict):
-    """The reference tracker's class and configuration.  An option of the
-    program that the reference copy was cut without (its module's ``CUT``)
-    is accepted only at a value where it does nothing; any other option it
-    does not know is refused."""
+def reference_config(config: dict, module, cls):
+    """A tracker part's reference configuration: ``cls`` (a dataclass of the
+    reference copy ``module``) from the configuration's tracker options.
+    An option of the program that the reference copy was cut without (its
+    module's ``CUT``) is accepted only at a value where it does nothing;
+    any other option it does not know is refused."""
     t = config["tracker"]
-    crop_hw = tuple(config["busca"]["crop_hw"])
+    known = {f.name for f in dataclasses.fields(cls)}
+    for k, v in t["kwargs"].items():
+        if k not in known and v not in module.CUT.get(k, ()):
+            raise ValueError(f"the reference {t['name']} tracker does "
+                             f"not run {k}={v!r}")
+    cfg = cls(**{k: v for k, v in t["kwargs"].items() if k in known})
+    cfg.crop_hw = tuple(config["busca"]["crop_hw"])
+    cfg.use_busca = True
+    return cfg
 
-    def build(module, cls):
-        known = {f.name for f in dataclasses.fields(cls)}
-        for k, v in t["kwargs"].items():
-            if k not in known and v not in module.CUT.get(k, ()):
-                raise ValueError(f"the reference {t['name']} tracker does "
-                                 f"not run {k}={v!r}")
-        cfg = cls(**{k: v for k, v in t["kwargs"].items() if k in known})
-        cfg.crop_hw = crop_hw
-        cfg.use_busca = True
-        return cfg
 
-    if t["name"] == "byte":
-        from benchref import byte
-
-        return byte.ByteTracker, build(byte, byte.ByteTrackerConfig)
-    if t["name"] == "ghost":
-        from benchref import ghost
-
-        return ghost.GhostTracker, build(ghost, ghost.GhostConfig)
-    raise ValueError(f"no reference tracker {t['name']!r}")
+def _ref_tracker(config: dict):
+    """The reference tracker's class and configuration, from the
+    configuration's tracker part."""
+    return parts.of(config, "tracker").reference(config)
 
 
 def track_frames(run, win) -> Tuple[int, int]:
@@ -157,6 +153,7 @@ def track_frames(run, win) -> Tuple[int, int]:
     from benchref.base import Track
 
     rec, f = run.rec, run.config["output_filter"]
+    tracker = parts.of(run.config, "tracker")
     cls, cfg = _ref_tracker(run.config)
     replay = ReplayEngine({k: list(v) for k, v in rec.assoc.items()})
     feats = ReplayFeatures(rec.extractor_outputs)
@@ -164,21 +161,13 @@ def track_frames(run, win) -> Tuple[int, int]:
     for name, replies in win.outputs.items():
         inputs = rec.tracker_inputs[name]
         Track.reset_id_counter()
-        if cls.__name__ == "GhostTracker":
-            trk = cls(cfg, replay, feats)
-        else:
-            trk = cls(cfg, replay)
+        trk = tracker.start(cls, cfg, replay, feats)
         mine = []
         try:
             for k, (boxes, scores, scale, shape) in enumerate(
                     inputs[:len(replies)]):
-                frame = PixelFree(shape)
-                if cls.__name__ == "GhostTracker":
-                    det_feats = (feats(boxes) if len(boxes)
-                                 else np.eye(1, 16)[:0])
-                    online = trk.update(boxes, scores, det_feats, frame)
-                else:
-                    online = trk.update(boxes, scores, scale, frame)
+                online = tracker.replay(
+                    trk, (boxes, scores, scale, PixelFree(shape)), feats)
                 mine.append(filter_output_tracks(
                     online, float(f["min_box_area"]), f["vertical_thresh"]))
         except Diverged as e:
@@ -197,60 +186,7 @@ def track_frames(run, win) -> Tuple[int, int]:
     return bad, total
 
 
-# -------------------------------------------------------------- the models --
-def _det_gaps(prog, ref, conf: float):
-    """(box gap over box size, score, unmatched rows) of one frame: program
-    rows matched
-    greedily to reference rows by IoU >= 0.5, highest scores first; rows
-    within 1e-3 of the confidence threshold may go unmatched."""
-    from benchref.hostmath import iou_matrix
-
-    (pb, ps), (rb, rs) = prog, ref
-    box = score = 0.0
-    # a box's gap relative to its size: a random regression head's boxes
-    # reach thousands of pixels, where float32's last bits are pixels
-    size = np.maximum(np.maximum(rb[:, 2] - rb[:, 0], rb[:, 3] - rb[:, 1]),
-                      1.0) if len(rb) else np.zeros(0)
-    unmatched = 0
-    free = np.ones(len(rb), bool)
-    if len(pb) and len(rb):
-        iou = iou_matrix(pb, rb)
-    for i in np.argsort(-ps, kind="stable"):
-        j = -1
-        if len(rb):
-            cand = np.where(free, iou[i], -1.0)
-            j = int(np.argmax(cand))
-            if cand[j] < 0.5:
-                j = -1
-        if j < 0:
-            unmatched += int(ps[i] >= conf + 1e-3)
-            continue
-        free[j] = False
-        box = max(box, float(np.abs(pb[i] - rb[j]).max() / size[j]))
-        score = max(score, abs(float(ps[i] - rs[j])))
-    unmatched += int(np.sum(free & (rs >= conf + 1e-3)))
-    return box, score, unmatched
-
-
-def detector_gaps(run):
-    from benchref.detector import RefYolox
-
-    d = run.config["detector"]
-    model = weights.yolox_model(d, 0, run.device)
-    model.load_state_dict(run.states["yolox"])
-    ref = RefYolox(model, tuple(d["test_size"]), d["conf_thresh"],
-                   d["nms_thresh"])
-    box = score = 0.0
-    unmatched = n = 0
-    for frames, outs in run.rec.det_calls:
-        for frame, prog in zip(frames, outs):
-            b, s, u = _det_gaps(prog, ref.detect(frame),
-                                float(d["conf_thresh"]))
-            box, score, unmatched = max(box, b), max(score, s), unmatched + u
-            n += 1
-    return box, score, unmatched, n
-
-
+# ---------------------------------------------------- crops and third rounds --
 def crop_gap(run):
     from benchref.crop import crop_resize_plain
 
@@ -360,54 +296,21 @@ def prob_gap(run):
     return gap, len(calls)
 
 
-@torch.inference_mode()
-def feat_rel(run):
-    from benchref.busca import INPUT_PIXEL_MEAN_BGR, INPUT_PIXEL_STD_BGR
-    from benchref.crop import crop_resize_plain
-
-    if not run.rec.feat_calls:
-        return 0.0, 0
-    r = run.config["reid"]
-    model = weights.reid_model(r, 0, run.device)
-    model.load_state_dict(run.states["reid"])
-    dev = run.device
-    mean = torch.tensor(INPUT_PIXEL_MEAN_BGR.tolist(), device=dev)
-    std = torch.tensor(INPUT_PIXEL_STD_BGR.tolist(), device=dev)
-    c255 = torch.full((), 255.0, device=dev)
-    worst = 0.0
-    for frame, boxes, out in run.rec.feat_calls:
-        f = torch.as_tensor(frame).to(dev)
-        crops = crop_resize_plain(
-            f, torch.as_tensor(boxes, dtype=torch.float32, device=dev),
-            tuple(r["crop_hw"]), quantize_uint8=True)
-        x = ((crops / c255 - mean) / std).flip(-1)
-        want = model(x, output_option="plain")[1].float().cpu().numpy()
-        scale = max(float(np.abs(want).max()), 1e-12)
-        worst = max(worst, float(np.abs(out - want).max()) / scale)
-    return worst, len(run.rec.feat_calls)
-
-
 def compare(run, win) -> List[Tuple[str, float, float]]:
-    """Every number compared, with its limit, for this cell."""
+    """Every number compared, with its limit, for this cell: the
+    detector's, crops, third rounds, the extractor's, tracks."""
     limits = run.config["limits"]
-    out = []
-    if "detector" in run.config:
-        box, score, unmatched, n = detector_gaps(run)
-        if not n:  # a sample that compared nothing fails
-            box = score = unmatched = float("inf")
-        out += [("det_box_rel", box, limits["det_box_rel"]),
-                ("det_score", score, limits["det_score"]),
-                ("det_unmatched", float(unmatched), limits["det_unmatched"])]
+    detector = parts.of(run.config, "detector")
+    extractor = parts.of(run.config, "extractor")
+    out = detector.gaps(run) if detector is not None else []
     gap, n = crop_gap(run)
     out.append(("crop_gap", gap if n else float("inf"), limits["crop_gap"]))
     gap, n = prob_gap(run)
     print(f"third rounds worked out again from their requests: {n}",
           file=sys.stderr)
     out.append(("prob_gap", gap, limits["prob_gap"]))
-    if "reid" in run.config:
-        rel, n = feat_rel(run)
-        out.append(("feat_rel", rel if n else float("inf"),
-                    limits["feat_rel"]))
+    if extractor is not None:
+        out += extractor.gaps(run)
     bad, total = track_frames(run, win)
     out.append(("track_frames", float(bad) if total else float("inf"),
                 limits["track_frames"]))

@@ -24,7 +24,7 @@ import time
 from typing import Dict, List, Optional
 
 
-from bmk import faults, probe, program, traffic, weights
+from bmk import faults, parts, probe, program, traffic, weights
 
 
 @dataclasses.dataclass
@@ -76,33 +76,20 @@ def _profiler(run: Run):
 # ---------------------------------------------------------------- weights --
 def make_weights(run: Run):
     """The benchmark's weights of the cell's models, on the device from the
-    seed (YOLOX calibrated on the streams' first frames)."""
+    configuration's ``weights_seed``: each part's (a detector's, an
+    extractor's) and BUSCA's, kept by role in ``run.states``."""
     import torch
 
-    # a configuration's weights are the same in every run (its
-    # ``weights_seed``): with random weights the detector's output, and so
-    # the trackers' work, would change with them
-    cfg, seed, dev = run.config, int(run.config["weights_seed"]), run.device
-    if "detector" in cfg and cfg["detector"]["kind"] == "yolox":
-        from benchref.detector import RefYolox
-        from bmk.calibrate import calibrate_yolox
-
-        d = cfg["detector"]
-        model = weights.yolox_model(d, seed, dev)
-        ref = RefYolox(model, tuple(d["test_size"]), d["conf_thresh"],
-                       d["nms_thresh"])
-        firsts = [s.sequence.frame(0)
-                  for s in traffic.streams(run.mix, seed)]
-        calibrate_yolox(ref, firsts, cfg["calibration"],
-                        float(cfg["tracker"]["kwargs"]["track_thresh"]),
-                        int(run.mix["streams"][0]["objects"]))
-        run.states["yolox"] = weights.cpu_state(model)
-        del model, ref
-    if "reid" in cfg:
-        run.states["reid"] = weights.cpu_state(
-            weights.reid_model(cfg["reid"], seed, dev))
+    # a configuration's weights are the same in every run: with random
+    # weights the detector's output, and so the trackers' work, would
+    # change with them
+    cfg, dev = run.config, run.device
+    for role in parts.WEIGHTED:
+        part = parts.of(cfg, role)
+        if part is not None:
+            run.states[role] = part.make_weights(run)
     run.states["busca"] = weights.cpu_state(
-        weights.busca_model(cfg["busca"], seed, dev))
+        weights.busca_model(cfg["busca"], int(cfg["weights_seed"]), dev))
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -166,11 +153,12 @@ def run_served(run: Run) -> Window:
         make_weights(run)
         run.mark("weights and calibration")
         program.set_precision()
-        det = program.detector(run.config, run.states["yolox"], run.device)
+        detector = parts.of(run.config, "detector")
+        det = detector.build(run.config, run.states["detector"], run.device)
         eng = program.engine(run.config, run.states["busca"], run.device)
         if run.args.control:
             faults.control(run, eng)
-        probe.wrap_detector(det, rec)
+        detector.wrap(det, rec)
         probe.wrap_engine(eng, rec)
         undo = probe.wrap_crops(rec)
         base_factory = program.tracker_factory(run.config, eng)
@@ -268,8 +256,9 @@ def run_in_process(run: Run) -> Window:
     eng = program.engine(run.config, run.states["busca"], run.device)
     if run.args.control:
         faults.control(run, eng)
-    feats = probe.RecordingExtractor(
-        program.extractor(run.config, run.states["reid"], run.device), rec)
+    extractor = parts.of(run.config, "extractor")
+    feats = None if extractor is None else extractor.wrap(
+        extractor.build(run.config, run.states["extractor"], run.device), rec)
     probe.wrap_engine(eng, rec)
     undo = probe.wrap_crops(rec)
     factory = program.tracker_factory(run.config, eng, feats)
@@ -284,7 +273,8 @@ def run_in_process(run: Run) -> Window:
         del warm
         run.mark("program and warm-up")
         shim = factory()
-        probe.wrap_features(shim, rec)
+        if extractor is not None:
+            extractor.watch(shim, rec)
         trk = probe.RecordingTracker(shim, rec, stream.name)
         if run.device.type == "cuda":
             torch.cuda.synchronize()

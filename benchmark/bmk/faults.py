@@ -30,11 +30,16 @@ FAULTS = ("state_unchanged", "half_batch", "altered_answer",
 
 def install(name: str):
     if name == "state_unchanged":
-        from busca_tpu_torch.trackers.byte import ByteTracker
-        from busca_tpu_torch.trackers.ghost import GhostTracker
+        from busca_tpu_torch.eval import run as cli
 
-        for cls in (ByteTracker, GhostTracker):
-            _freeze(cls)
+        make = cli.make_tracker
+
+        def make_tracker(*a, **kw):
+            trk = make(*a, **kw)
+            _freeze(type(trk))
+            return trk
+
+        cli.make_tracker = make_tracker
     elif name == "half_batch":
         from busca_tpu_torch.assoc.engine import AssociationEngine
 
@@ -92,7 +97,10 @@ def install(name: str):
 
 def _freeze(cls):
     """After its first frame, ``cls``'s update returns that frame's output
-    and changes nothing."""
+    and changes nothing (whichever tracker class the cell builds)."""
+    if getattr(cls, "_fault_frozen", False):
+        return
+    cls._fault_frozen = True
     orig_gen = cls._update_gen
 
     def _update_gen(self, *args):
@@ -120,14 +128,28 @@ def control(run, eng):
 
 
 class Fp8Operands(torch.nn.Module):
-    """A model whose bf16 products take float8-rounded operands."""
+    """A model whose bf16 products take float8-rounded operands.  The
+    program's engine may hand it folded memory (``mem_gather``: each
+    slot's unit) and more or fewer candidate crops than candidate rows
+    (rows past the crops weigh 0, crops past the rows are padding no row
+    reads); the reference model takes the unfolded batch, with as many
+    candidate crops as rows."""
 
     def __init__(self, inner):
         super().__init__()
         self.inner = inner
 
-    def forward(self, *args, **kw):
+    def forward(self, mem_crops, can_crops, *args, mem_gather=None, **kw):
         from benchref.precision import round_operands
 
+        if mem_gather is not None:
+            units = mem_crops.reshape((-1,) + mem_crops.shape[-3:])
+            mem_crops = units[mem_gather.long().reshape(-1)].reshape(
+                tuple(mem_gather.shape) + units.shape[1:])
+            rows = kw["can_weights"].shape[0]
+            can_crops = can_crops[:rows]
+            if can_crops.shape[0] < rows:
+                can_crops = torch.cat([can_crops, can_crops.new_zeros(
+                    (rows - can_crops.shape[0],) + can_crops.shape[1:])])
         with round_operands(torch.float8_e4m3fn):
-            return self.inner(*args, **kw)
+            return self.inner(mem_crops, can_crops, *args, **kw)

@@ -1,7 +1,8 @@
 """What the benchmark records around the program's callables.
 
 Two kinds of wrappers, both installed by the benchmark on the program's
-objects (the program itself carries no instrumentation):
+objects (the program itself carries no instrumentation); a detector's and
+an extractor's are their parts' (``bmk/parts``), which record here:
 
 - capture, in every run: what the correctness check needs (each stream's
   tracker inputs, every third-round result, and a sample drawn from the
@@ -60,19 +61,19 @@ class Recorder:
         self.update_times = []  # (t0, t1) of each timed in-process update
         self.lock = threading.Lock()
         self.spans = []       # (name, t0, t1, thread, frames)
-        self.forwards = []    # (kind, t, shape...)
+        self.forwards = []    # (role or "busca" or "tracks", t, shape...)
         self.k1 = []          # (t, frame_hw, boxes tensor, out elements)
         self.tracker_inputs = defaultdict(list)   # stream -> [(boxes, ...)]
         # assoc_key -> [(probs, reliable), ...] in call order (public
         # detections repeat on a forward-and-back stream, and so can keys)
         self.assoc = defaultdict(list)
-        self.det_calls = []   # (frames, [(boxes, scores)])
+        self.det_calls = []   # the detector part's sampled calls
         self.crop_calls = []  # (frame, boxes, crop_hw, crops)
         # sampled third rounds: (requests, kwargs, results, raw probs)
         self.assoc_calls = []
         self.largest_assoc = None  # the window's largest, as assoc_calls
         self.largest_tracks = 0
-        self.feat_calls = []  # (frame, boxes, feats)
+        self.feat_calls = []  # the extractor part's sampled frames
         self.extractor_outputs = []
 
     def pick(self, kind: str) -> bool:
@@ -162,54 +163,6 @@ class RecordingTracker:
                     req = gen.send(res)
         except StopIteration as e:
             return e.value
-
-
-class RecordingExtractor:
-    """A feature tracker's ReID extractor, each call spanned and its output
-    kept in call order (the reference tracker replays them)."""
-
-    def __init__(self, inner, rec: Recorder):
-        self._inner = inner
-        self._rec = rec
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
-
-    def __call__(self, crops):
-        with self._rec.span("reid"):
-            out = self._inner(crops)
-        if self._rec.active:
-            self._rec.extractor_outputs.append(frozen(out))
-        self._rec.forward("reid", int(out.shape[0]))
-        return out
-
-
-def wrap_detector(det, rec: Recorder):
-    """Span the detector's calls and keep the sampled ones' frames and
-    rows (frame pixels)."""
-    batch, single = det.detect_batch, det.detect
-
-    def keep(frames, outs):
-        if rec.pick("detector"):
-            rec.det_calls.append(([np.array(f, copy=True) for f in frames], [
-                (o.boxes_tlbr / o.scale, frozen(o.scores)) for o in outs]))
-
-    def detect_batch(frames):
-        with rec.span("detector", frames=len(frames)):
-            outs = batch(frames)
-        rec.forward("yolox", len(frames))
-        keep(frames, outs)
-        return outs
-
-    def detect(frame, **kw):
-        with rec.span("detector", frames=1):
-            out = single(frame, **kw)
-        rec.forward("yolox", 1)
-        keep([frame], [out])
-        return out
-
-    det.detect_batch, det.detect = detect_batch, detect
-    return det
 
 
 class Held:
@@ -340,19 +293,3 @@ def k1_launch_count() -> int:
     from busca_tpu_torch.ops import crop_cuda
 
     return int(getattr(crop_cuda.crop_resize_cuda, "launches", 0))
-
-
-def wrap_features(shim, rec: Recorder):
-    """Keep the sampled frames' detection features with the frame and the
-    boxes they were cut at."""
-    orig = shim._features
-
-    def features(boxes, scale, frame):
-        out = orig(boxes, scale, frame)
-        if rec.pick("features"):
-            rec.feat_calls.append((frame, np.asarray(boxes, np.float64)
-                                   * scale, frozen(out)))
-        return out
-
-    shim._features = features
-    return shim

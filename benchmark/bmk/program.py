@@ -1,6 +1,7 @@
 """The system under test, built from a configuration file and the
 benchmark's weights: the program's own classes and entry points
-(``busca_tpu_torch``), nothing re-implemented."""
+(``busca_tpu_torch``), nothing re-implemented.  A configuration's detector
+and extractor are built by their parts (``bmk/parts``)."""
 
 from __future__ import annotations
 
@@ -15,19 +16,6 @@ def set_precision():
     from busca_tpu_torch.utils.device import set_card_precision
 
     set_card_precision()
-
-
-def detector(config: dict, state: dict, device):
-    from busca_tpu_torch.eval.detector import YoloxDetector
-    from busca_tpu_torch.models.yolox import YoloxConfig
-
-    d = config["detector"]
-    cfg = YoloxConfig.size(d["size"], num_classes=int(d["num_classes"]),
-                           dtype=d["dtype"])
-    return YoloxDetector(cfg, state_dict=state,
-                         test_size=tuple(d["test_size"]),
-                         conf_thresh=float(d["conf_thresh"]),
-                         nms_thresh=float(d["nms_thresh"]), device=device)
 
 
 def engine(config: dict, state: dict, device):
@@ -49,16 +37,6 @@ def engine(config: dict, state: dict, device):
                              f"configuration states {want!r}")
     eng.model.load_state_dict(state)
     return eng
-
-
-def extractor(config: dict, state: dict, device):
-    from busca_tpu_torch.eval.features import ReidFeatureExtractor
-
-    r = config["reid"]
-    return ReidFeatureExtractor(state_dict=state, layers=tuple(r["layers"]),
-                                num_classes=int(r["num_classes"]),
-                                crop_hw=tuple(r["crop_hw"]),
-                                dtype=r["dtype"], device=device)
 
 
 def tracker_factory(config: dict, eng, feats=None):

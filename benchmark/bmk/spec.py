@@ -1,7 +1,7 @@
 """Find a cell's configuration, traffic mix and metric readers by name.
 
 Everything that belongs to one configuration, mix or per-layer metric sits
-in a file of its own, so a later change adds a cell by adding files and
+in a file of its own (a configuration's models too: ``bmk/parts.py``), so a later change adds a cell by adding files and
 entries, never by editing one that is there.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import sys
 from typing import Callable, Dict, Optional
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))  # benchmark/
@@ -56,14 +57,21 @@ def metrics_for(bench: dict, workload: str, kind: str):
             if "workloads" not in m or workload in m["workloads"]]
 
 
-def metric_reader(name: str) -> Callable:
-    """``read(run)`` of ``benchmark/metrics/<name>.py``."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    mod_name = "bench_metric_" + name.replace(".", "_").replace("-", "_")
+def load_file(path: str, prefix: str, name: str):
+    """The module of the file ``path``, executed under a name made of
+    ``prefix`` and ``name`` (registered, so dataclasses find it)."""
+    mod_name = prefix + name.replace(".", "_").replace("-", "_")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str) -> Callable:
+    """``read(run)`` of ``benchmark/metrics/<name>.py``."""
+    return load_file(os.path.join(HERE, "metrics", f"{name}.py"),
+                     "bench_metric_", name).read
 
 
 def read_per_layer(bench: dict, workload: str, run) -> Dict[str, dict]:

@@ -4,9 +4,11 @@ Each model is built from the benchmark's reference copy on the device and
 filled from one ``torch.Generator`` on the device in one draw: a normal
 variate per element, scaled by ``1/sqrt(fan_in)`` for matrices and
 convolutions (lecun normal), unit norm scales, zero biases and running
-means, unit running variances, N(0, 1) special tokens and YOLOX's
-obj/cls prior.  The state dicts are what both the program and the
-reference load: the program never makes weights of its own here.
+means, unit running variances, N(0, 1) special tokens and a detector's
+objectness and class prior.  The state dicts are what both the program and
+the reference load: the program never makes weights of its own here.  The
+detector's and the extractor's models are drawn by their parts
+(``bmk/parts``), BUSCA's here.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ def torch_seed(seed: int, key: int) -> int:
 
 @torch.no_grad()
 def fill_(module: torch.nn.Module, seed: int, key: int,
-          head_prior: bool = False) -> torch.nn.Module:
+          prior_on: tuple = ()) -> torch.nn.Module:
     """Fill every parameter and buffer of ``module`` (on its device) from
-    one draw of a device generator."""
+    one draw of a device generator; the vectors whose names start with one
+    of ``prior_on`` take the detection prior's bias."""
     params = list(module.named_parameters())
     device = params[0][1].device
     gen = torch.Generator(device=device)
@@ -48,8 +51,7 @@ def fill_(module: torch.nn.Module, seed: int, key: int,
         elif p.dim() >= 2:
             fan_in = int(np.prod(p.shape[1:]))
             p.copy_(z / math.sqrt(fan_in))
-        elif head_prior and name.startswith(("head.obj_preds",
-                                             "head.cls_preds")):
+        elif prior_on and name.startswith(prior_on):
             p.fill_(prior)
         elif leaf == "weight":
             p.fill_(1.0)
@@ -63,18 +65,6 @@ def fill_(module: torch.nn.Module, seed: int, key: int,
     return module
 
 
-def yolox_model(det_cfg: dict, seed: int, device):
-    """The reference YOLOX of the configuration, filled (not calibrated)."""
-    from benchref.yolox import YOLOX, YoloxConfig
-
-    cfg = YoloxConfig.size(det_cfg["size"],
-                           num_classes=int(det_cfg["num_classes"]),
-                           dtype=det_cfg["dtype"])
-    with torch.device(device):
-        model = YOLOX(cfg)
-    return fill_(model, seed, 1, head_prior=True).eval()
-
-
 def busca_model(busca: dict, seed: int, device):
     """The reference BUSCA model of the configuration, filled, in its
     compute dtype (parameters float32, as the program holds them)."""
@@ -84,18 +74,6 @@ def busca_model(busca: dict, seed: int, device):
     with torch.device(device):
         model = BuscaModel(cfg)
     return fill_(model, seed, 2).eval()
-
-
-def reid_model(reid: dict, seed: int, device):
-    """The reference ReID ResNet of a feature tracker, filled."""
-    from benchref.precision import compute_dtype
-    from benchref.reid import ReIDResNet
-
-    with torch.device(device):
-        model = ReIDResNet(layers=tuple(reid["layers"]),
-                           num_classes=int(reid["num_classes"]),
-                           dtype=compute_dtype(reid["dtype"]))
-    return fill_(model, seed, 3).eval()
 
 
 BUSCA_KEYS = ("num_layer", "nhead", "dim_embedding", "trans_dim", "ff_size",

@@ -5,7 +5,8 @@
 Run from the checkout's root, where ``BENCHMARK.json`` names the cell's
 configuration (``benchmark/configs``), its traffic mix
 (``benchmark/mixes``) and its metrics (per-layer readers in
-``benchmark/metrics``).  The run makes its inputs and weights from the seed,
+``benchmark/metrics``); the configuration names its models' parts
+(``benchmark/bmk/parts``).  The run makes its inputs and weights from the seed,
 builds the program (``busca_tpu_torch``) and warms up every shape the cell
 uses (``setup_s``), drives it for ``--seconds``, then checks what the timed
 path produced against the plain reference (``benchmark/benchref``) and
@@ -99,11 +100,12 @@ def main(argv=None) -> int:
                           os.path.join(BUILD, "torch_extensions"))
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD, "triton"))
     os.environ.setdefault("USE_FLAX", "0")
-    from bmk import spec, traffic
+    from bmk import parts, spec, traffic
 
     try:
         bench = spec.load_benchmark()
         cell, config, mix = spec.resolve_cell(bench, args.workload)
+        parts.require(config)
     except (OSError, KeyError, ValueError) as e:
         return fail(2, f"benchmark: {e}")
     import torch

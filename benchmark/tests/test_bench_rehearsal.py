@@ -27,6 +27,7 @@ def bench(*args, timeout=600):
 @pytest.mark.parametrize("workload,trace", [
     ("byte_mot20.served4", "1"),
     ("ghost_mot20.crowd_dropout", "0"),
+    ("ghost_mot20.crowd_clear", "1"),
 ])
 def test_rehearsal_runs_a_cell_end_to_end(workload, trace):
     proc, result = bench("--workload", workload, "--seed", str(2**31 + 11),
@@ -37,6 +38,19 @@ def test_rehearsal_runs_a_cell_end_to_end(workload, trace):
     assert list(result)[-1] == "checks"
     assert result["attempted"] > 0 and result["failed"] == 0
     assert proc.stderr.strip().splitlines()[-1].startswith("check ")
+
+
+@pytest.mark.parametrize("workload", ["byte_mot20.served4",
+                                      "ghost_mot20.crowd_dropout"])
+def test_control_rehearsal_is_not_correct(workload):
+    """The precision control in the program's place runs the whole path
+    (the engine's folded memory unfolded for the reference) and fails."""
+    proc, result = bench("--workload", workload, "--seed", str(2**31 + 17),
+                         "--seconds", "8", "--trace", "0", "--rehearse",
+                         "--control")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert result["correct"] is False, result["checks"]
+    assert result["checks"]["prob_gap"]["value"] > 0.01
 
 
 def test_no_card_no_result():
