@@ -36,8 +36,13 @@
 // plain version's rule (ops/crop.py::box_params): x1 = floor(b0), y1 =
 // floor(b1), x2 = ceil(b2), y2 = ceil(b3), the clip bounds clamped to
 // [0, W] and [0, H], cnt = max(cy2 - cy1, 0) * max(cx2 - cx1, 0), valid =
-// hc > 0 && wc > 0 && cnt > 0.  (int)floorf agrees with the plain version's
-// floor -> int64 -> int32 for coordinates within +-2**30.
+// hc > 0 && wc > 0 && cnt > 0.  As there, the integers are 64-bit until the
+// clip, the extents and the validity are formed, and x1, y1, wc, hc are then
+// wrapped to 32 bits (floor -> int64 -> int32), so that any float32 box gives
+// the plain version's geometry: a lost track's Kalman box 5.4e10 pixels wide
+// crops to its pad mean on both.  A tap position is clamped to [-2, W] (to
+// [-2, H] in y) before its 32-bit tests, which keeps every inside/outside
+// decision and cannot overflow.
 //
 // Bound: the op moves bytes and does little arithmetic.  At the smoke shape
 // (N = 64 boxes of one 1080x1920 frame, 384x128 crops) it writes
@@ -97,23 +102,46 @@ struct Box {
   bool padded;  // valid, and the cutout leaves the frame: the pad is used
 };
 
+// The low 32 bits of v as an int (the plain version's int64 -> int32).
+__device__ __forceinline__ int wrap32(long long v) {
+  return (int)(unsigned)(unsigned long long)v;
+}
+
+// v - u in 64 bits, wrapping as the plain version's int64 tensors do.
+__device__ __forceinline__ long long sub64(long long v, long long u) {
+  return (long long)((unsigned long long)v - (unsigned long long)u);
+}
+
+__device__ __forceinline__ int clip64(long long v, int hi) {
+  return (int)min(max(v, 0LL), (long long)hi);
+}
+
+// A tap's integer position, clamped to [-2, n]: positions below -1 or
+// above n - 1 are outside every clip [c1, c2) within [0, n] either way.
+__device__ __forceinline__ int tap_position(float f, int n) {
+  return (int)min(max((long long)f, -2LL), (long long)n);
+}
+
 __device__ __forceinline__ Box box_geometry(const float* __restrict__ boxes,
                                             int n, int h, int w) {
   const float* b = boxes + 4 * (size_t)n;
+  const long long x1 = (long long)floorf(__ldg(b + 0));
+  const long long y1 = (long long)floorf(__ldg(b + 1));
+  const long long x2 = (long long)ceilf(__ldg(b + 2));
+  const long long y2 = (long long)ceilf(__ldg(b + 3));
+  const long long wc = sub64(x2, x1), hc = sub64(y2, y1);
   Box g;
-  g.x1 = (int)floorf(__ldg(b + 0));
-  g.y1 = (int)floorf(__ldg(b + 1));
-  const int x2 = (int)ceilf(__ldg(b + 2));
-  const int y2 = (int)ceilf(__ldg(b + 3));
-  g.wc = x2 - g.x1;
-  g.hc = y2 - g.y1;
-  g.cx1 = min(max(g.x1, 0), w);
-  g.cx2 = min(max(x2, 0), w);
-  g.cy1 = min(max(g.y1, 0), h);
-  g.cy2 = min(max(y2, 0), h);
+  g.x1 = wrap32(x1);
+  g.y1 = wrap32(y1);
+  g.wc = wrap32(wc);
+  g.hc = wrap32(hc);
+  g.cx1 = clip64(x1, w);
+  g.cx2 = clip64(x2, w);
+  g.cy1 = clip64(y1, h);
+  g.cy2 = clip64(y2, h);
   g.cnt = (long long)max(g.cy2 - g.cy1, 0) * max(g.cx2 - g.cx1, 0);
-  g.valid = g.hc > 0 && g.wc > 0 && g.cnt > 0;
-  g.padded = g.valid && !(g.x1 >= 0 && g.y1 >= 0 && x2 <= w && y2 <= h);
+  g.valid = hc > 0 && wc > 0 && g.cnt > 0;
+  g.padded = g.valid && !(x1 >= 0 && y1 >= 0 && x2 <= w && y2 <= h);
   return g;
 }
 
@@ -241,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
     sy = fminf(fmaxf(sy, 0.0f), fmaxf(hf - 1.0f, 0.0f));
     const float ay = (float)g.y1 + sy;
     const float y0f = floorf(ay);
-    const int y0 = (int)y0f;
+    const int y0 = tap_position(y0f, h);
     const float fy = ay - y0f, gy = 1.0f - fy;
     bool in_y[2];
     const uint8_t* row[2];
@@ -261,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) crop_resize_kernel(
       sx = fminf(fmaxf(sx, 0.0f), xmax);
       const float ax = x1f + sx;
       const float x0f = floorf(ax);
-      x0[j] = (int)x0f;
+      x0[j] = tap_position(x0f, w);
       fx[j] = ax - x0f;
     }
 

@@ -722,7 +722,16 @@ class TransCenterDetector:
         """One uint8 BGR frame (original resolution); ``current_pos`` = the
         tracker's boxes (tlbr, detector coords) from
         ``get_detector_positions``, the stateful feedback loop
-        (mot_evaluator.py:158)."""
+        (mot_evaluator.py:158).
+
+        Recorded (``utils/profiling.py``): the ``detector.frame`` span
+        around the call, ``detector.prior`` around the prior heatmap's host
+        render and upload, and the counter ``detector.priors`` of the
+        prior centres."""
+        with profiling.span("detector.frame"):
+            return self._detect(frame_bgr, current_pos)
+
+    def _detect(self, frame_bgr, current_pos):
         from busca_tpu_torch.models.transcenter import render_prior_heatmap
         from busca_tpu_torch.trackers.transcenter import (
             boxes_to_center_priors,
@@ -730,24 +739,26 @@ class TransCenterDetector:
 
         th, tw = self.test_size
         down = self.config.down_ratio
-        # pre_cts: box centers /down_ratio, clamped to the input plane
-        # (transcenter.py:104-127; the coords are in the detector plane).
-        # Rounding is monotone, so clamping after the division gives the
-        # reference's clamp-then-divide values.
-        pre_cts = boxes_to_center_priors(current_pos, down)
-        if pre_cts is not None:
-            pre_cts[:, 0] = np.clip(pre_cts[:, 0], 0, (tw - 1) / down)
-            pre_cts[:, 1] = np.clip(pre_cts[:, 1], 0, (th - 1) / down)
-        pre_hm = render_prior_heatmap(pre_cts, (th // down, tw // down))
+        with profiling.span("detector.prior"):
+            # pre_cts: box centers /down_ratio, clamped to the input plane
+            # (transcenter.py:104-127; the coords are in the detector
+            # plane).  Rounding is monotone, so clamping after the division
+            # gives the reference's clamp-then-divide values.
+            pre_cts = boxes_to_center_priors(current_pos, down)
+            if pre_cts is not None:
+                pre_cts[:, 0] = np.clip(pre_cts[:, 0], 0, (tw - 1) / down)
+                pre_cts[:, 1] = np.clip(pre_cts[:, 1], 0, (th - 1) / down)
+            pre_hm = torch.from_numpy(render_prior_heatmap(
+                pre_cts, (th // down, tw // down))).to(self.device)
+            profiling.count("detector.priors",
+                            0 if pre_cts is None else len(pre_cts))
 
         frame = torch.as_tensor(np.asarray(frame_bgr)).to(self.device)
         canvas, r = self.prep(frame)
         if self._pre_canvas is None:
             # first frame: pre_sample = sample (transcenter.py:95-97)
             self._pre_canvas = canvas
-        boxes, scores, valid = self.step(
-            canvas, self._pre_canvas, torch.from_numpy(pre_hm).to(self.device)
-        )
+        boxes, scores, valid = self.step(canvas, self._pre_canvas, pre_hm)
         self._pre_canvas = canvas  # the device copy, for the next frame
 
         boxes = boxes.cpu().numpy()
@@ -765,9 +776,12 @@ class TransCenterDetector:
 
 def build_transcenter_detector(dataset="mot17", ckpt=None,
                                test_size=(640, 1088), out_thresh=0.1,
-                               device="cuda",
-                               seed: int = 0) -> TransCenterDetector:
-    """A TransCenter detector for ``dataset``'s preset.
+                               device="cuda", seed: int = 0,
+                               sampling: str = "local"
+                               ) -> TransCenterDetector:
+    """A TransCenter detector for ``dataset``'s preset, its decoder's
+    attention in ``sampling``: "local" (the default, K2 on the card) or
+    "deformable" (the published multi-scale deformable attention).
 
     ``ckpt``: busca_tpu-trained ``.npz`` weights only (the flax parameter
     tree, converted with ``transcenter_state_dict_from_flax``); upstream
@@ -790,7 +804,8 @@ def build_transcenter_detector(dataset="mot17", ckpt=None,
 
         state = transcenter_state_dict_from_flax(load_params_npz(ckpt))
     return TransCenterDetector(
-        TransCenterConfig.for_dataset(dataset), state_dict=state,
+        TransCenterConfig.for_dataset(dataset, sampling=sampling),
+        state_dict=state,
         test_size=test_size, out_thresh=out_thresh, device=device, seed=seed,
     )
 

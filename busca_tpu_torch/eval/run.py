@@ -12,8 +12,9 @@ Modes:
 - ``--mot-dir DIR ...``: MOTChallenge sequence directories (``seqinfo.ini``,
   ``img1/*.jpg``, optional ``gt/gt.txt``), one of three ways:
   - with ``--detector``: the live detector-in-the-loop path (reference
-    mot_evaluator.py:131-235): YOLOX (tiny, s, m, l, x) or TransCenter per
-    frame, NMS on the device, the tracker fed with the detections and the
+    mot_evaluator.py:131-235): YOLOX (tiny, s, m, l, x) or TransCenter
+    (its decoder attention by ``--transcenter-sampling``) per frame, NMS on
+    the device, the tracker fed with the detections and the
     device canvas; or CenterTrack (``--tracker centertrack``, DLA-34,
     MobileNetV2 or tiny by ``--centertrack-arch``, its DCN by
     ``--centertrack-sampling``) with the tracker's dict tracks fed back as
@@ -469,7 +470,8 @@ def build_detector(args):
         return build_transcenter_detector(
             dataset=args.detector_dataset, ckpt=args.detector_ckpt,
             test_size=test_size, out_thresh=args.det_conf,
-            device=args.device, seed=args.seed)
+            device=args.device, seed=args.seed,
+            sampling=args.transcenter_sampling)
     return build_yolox_detector(
         size=args.detector.split("-")[-1], ckpt=args.detector_ckpt,
         test_size=test_size, conf_thresh=args.det_conf,
@@ -820,6 +822,12 @@ def main(argv=None):
                              "shifts (gather-free; exact wherever "
                              "|offset| <= 3), or offsets pinned to the tap "
                              "grid (from-scratch training)")
+    parser.add_argument("--transcenter-sampling", default="local",
+                        choices=("local", "deformable"),
+                        help="TransCenter's decoder attention: the local "
+                             "multi-scale taps (kernel K2 on the card) or "
+                             "the published multi-scale deformable "
+                             "attention")
     parser.add_argument("--centertrack-arch", default="dla34",
                         choices=("dla34", "tiny", "mobilenet"),
                         help="CenterTrack backbone: dla34 (published "

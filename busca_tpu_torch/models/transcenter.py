@@ -62,6 +62,7 @@ from busca_tpu_torch.models.precision import (
 )
 from busca_tpu_torch.ops.deform import multi_scale_deformable_attention
 from busca_tpu_torch.ops.lma import local_tap_sum_levels
+from busca_tpu_torch.utils import profiling
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 HM_BIAS = -4.6  # sigmoid ~ 0.01 prior (the CenterNet focal-loss init)
@@ -297,7 +298,12 @@ class DeformableCrossAttention(nn.Module):
         sizes = torch.tensor([(wl, hl) for hl, wl in spatial_shapes],
                              dtype=torch.float32, device=queries.device)
         loc = ref_points[:, :, None, None, None, :] + off / sizes[:, None, :]
-        out = multi_scale_deformable_attention(value, spatial_shapes, loc, w)
+        shape = {"batch": b, "queries": lq, "values": value.shape[1],
+                 "heads": nh, "levels": nl, "points": npt,
+                 "head_dim": self.dim // nh}
+        with profiling.span("transcenter.msda", device=value, attrs=shape):
+            out = multi_scale_deformable_attention(value, spatial_shapes, loc,
+                                                   w)
         return self.proj(out)
 
 
@@ -488,12 +494,33 @@ class TransCenterDETR(nn.Module):
             from the tracker's ``pre_cts`` (zeros when no priors).
         Returns:
           dict of NHWC maps at stride ``down_ratio``.
+
+        Recorded (``utils/profiling.py``), each with a CUDA event pair on
+        the card: ``transcenter.backbone`` (PVTv2 over both frames and the
+        input projections), ``transcenter.decoder`` (the queries, the
+        decoder layers and the final norm) and, inside it, one
+        ``transcenter.msda`` per deformable attention call, its shapes in
+        its attributes.
         """
+        with profiling.span("transcenter.backbone", device=curr):
+            feats = self.pvt(torch.cat([curr, pre]))  # shared weights
+            mem = [conv1x1(getattr(self, f"input_proj_{lvl}"), f)
+                   for lvl, f in enumerate(feats)]
+        with profiling.span("transcenter.decoder", device=curr):
+            q = self._decode(feats, mem, pre_hm)
+        fmap = _nchw(q)
+        out = {}
+        for name in HEADS:
+            x = F.relu(getattr(self, f"{name}_conv")(fmap))
+            out[name] = _nhwc(getattr(self, f"{name}_out")(x))
+        return out
+
+    def _decode(self, feats, mem, pre_hm):
+        """The dense queries (stage-0 features plus the prior's embedding)
+        through the decoder layers and the final norm -> ``[B, H4, W4,
+        C]``."""
         cfg = self.config
-        b = curr.shape[0]
-        feats = self.pvt(torch.cat([curr, pre]))  # shared weights
-        mem = [conv1x1(getattr(self, f"input_proj_{lvl}"), f)
-               for lvl, f in enumerate(feats)]
+        b = pre_hm.shape[0]
         shapes = [(f.shape[1], f.shape[2]) for f in feats]
         if self.deformable:
             # the flattened memory, each level plus its (float32) embedding
@@ -503,7 +530,7 @@ class TransCenterDETR(nn.Module):
                 for lvl, m in enumerate(mem)], dim=1)
             mem_cur, mem_pre = flat[:b], flat[b:]
             h4, w4 = shapes[0]
-            ref = reference_points(h4, w4, curr.device)[None].expand(
+            ref = reference_points(h4, w4, pre_hm.device)[None].expand(
                 b, h4 * w4, 2)
         else:
             mem_cur = [m[:b] for m in mem]
@@ -517,13 +544,7 @@ class TransCenterDETR(nn.Module):
         q = q.reshape(b, h4 * w4, cfg.hidden_dim)
         for i in range(cfg.num_decoder_layers):
             q = getattr(self, f"dec_{i}")(q, mem_cur, mem_pre, shapes, ref)
-        fmap = _nchw(self.dec_norm(q).reshape(b, h4, w4, cfg.hidden_dim))
-
-        out = {}
-        for name in HEADS:
-            x = F.relu(getattr(self, f"{name}_conv")(fmap))
-            out[name] = _nhwc(getattr(self, f"{name}_out")(x))
-        return out
+        return self.dec_norm(q).reshape(b, h4, w4, cfg.hidden_dim)
 
 
 # ---------------------------------------------------------------------------

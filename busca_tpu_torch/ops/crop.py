@@ -229,10 +229,10 @@ def crop_resize_normalize(
       frame: ``[H, W, 3]`` frame, BGR unless ``bgr_input`` is False: uint8
         on the card (:func:`check_card_frame` raises otherwise); uint8 or
         float on the CPU.
-      boxes: ``[N, 4]`` ltrb boxes in frame coordinates, each coordinate
-        within +-2**30 (there the kernel's float -> int conversion agrees
-        with the plain version's; tracker boxes lie within a few frame
-        widths).
+      boxes: ``[N, 4]`` ltrb boxes in frame coordinates, any finite
+        float32 value: the kernel forms the integers as the plain version does
+        (floor -> int64 -> int32), so a lost track's box thousands of
+        frame widths wide crops alike on the card and here.
       out_hw: output crop size (H, W).
       normalize: apply the GHOST ``(x/255 - mean)/std`` normalization.
       rgb_output: flip channels to RGB (what the ReID net expects).

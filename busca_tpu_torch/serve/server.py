@@ -469,6 +469,11 @@ def main(argv=None):
                    choices=("dla34", "tiny", "mobilenet"))
     p.add_argument("--centertrack-sampling", default="deformable",
                    choices=("deformable", "windowed", "local"))
+    p.add_argument("--transcenter-sampling", default="local",
+                   choices=("local", "deformable"),
+                   help="TransCenter's decoder attention: the local "
+                        "multi-scale taps (kernel K2 on the card) or the "
+                        "published multi-scale deformable attention")
     p.add_argument("--test-h", type=int, default=800)
     p.add_argument("--test-w", type=int, default=1440)
     p.add_argument("--det-conf", type=float, default=0.1)

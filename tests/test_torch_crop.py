@@ -23,6 +23,7 @@ import torch
 from busca_tpu.ops.crop import crop_resize_normalize as jax_crop
 from busca_tpu.ops.crop_pallas import crop_resize_pallas
 from busca_tpu_torch.ops import crop as tcrop
+from test_torch_crop_cuda import WITNESS_BOXES
 
 OUT_HW = (48, 16)
 
@@ -251,3 +252,43 @@ def test_card_frame_contract_is_uint8():
     as_float = _port(frame.astype(np.float32), boxes)
     as_uint8 = _port(frame.astype(np.uint8), boxes)
     np.testing.assert_array_equal(as_float, as_uint8)
+
+
+def _wrap32(v: int) -> int:
+    return (v + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def test_witness_boxes_follow_floor_int64_int32():
+    """At any float32 box the geometry is floor -> int64 -> int32, the rule
+    K1 shares (``csrc/crop_resize.cu``, ``box_geometry``): the clip, the
+    extents and the validity are formed in 64 bits, x1, y1, wc, hc are
+    then wrapped.  The two witness boxes are valid, their x taps all fall
+    outside the clip, and each crops to its pad mean; busca_tpu's crop
+    gives zeros there (its float -> int32 conversion saturates, so the
+    width wraps to -1 and the box reads as invalid), which is what K1 gave
+    before it took this rule (tests/test_torch_crop_cuda.py holds K1 to
+    the plain version at these boxes on the card)."""
+    h, w = 896, 1600
+    frame = np.random.RandomState(21).randint(0, 256, (h, w, 3)).astype(
+        np.uint8)
+    ip, pad = tcrop.box_params(torch.from_numpy(frame),
+                               torch.from_numpy(WITNESS_BOXES), True)
+    for row, b in zip(ip.tolist(), WITNESS_BOXES.astype(np.float64)):
+        x1, y1 = int(np.floor(b[0])), int(np.floor(b[1]))
+        x2, y2 = int(np.ceil(b[2])), int(np.ceil(b[3]))
+        want = [_wrap32(x1), _wrap32(y1), _wrap32(x2 - x1), _wrap32(y2 - y1),
+                min(max(x1, 0), w), min(max(x2, 0), w),
+                min(max(y1, 0), h), min(max(y2, 0), h), 1]
+        assert row == want
+    got = _port(frame, WITNESS_BOXES, normalize=False, rgb_output=False)
+    for k in range(len(WITNESS_BOXES)):
+        cx1, cx2, cy1, cy2 = ip[k, 4:8].tolist()
+        region = frame[cy1:cy2, cx1:cx2].astype(np.int64)
+        mean = np.trunc(np.float32(region.sum())
+                        / np.float32(region.size))
+        assert float(pad[k]) == mean
+        np.testing.assert_array_equal(got[k], np.full_like(got[k], mean))
+    jax_out = np.asarray(jax_crop(frame, WITNESS_BOXES, OUT_HW,
+                                  normalize=False, rgb_output=False))
+    assert not jax_out.any()
+

@@ -19,6 +19,12 @@ from busca_tpu_torch.ops.crop import crop_resize_normalize_plain
 
 pytestmark = pytest.mark.cuda
 
+# Boxes of lost tracks whose Kalman width ran away, as BYTE handed them to
+# the crop op on a served 896x1600 canvas: x beyond +-2**31
+WITNESS_BOXES = np.array([[-27220402176, 740.96, 27220404224, 926.42],
+                          [-1640454400, 855.24, 1640454912, 880.46]],
+                         np.float32)
+
 
 @pytest.fixture
 def cuda():
@@ -126,6 +132,27 @@ def test_k1_far_boxes_exact(cuda):
         [-1e5, 100.5, 50.5, 300.5],
         [300.5, -1e5, 400.5, 1e5],
         [1e5, 1e5, 1e5 + 80.0, 1e5 + 200.0],
+    ], dtype=torch.float32, device=cuda)
+    for quantize in (True, False):
+        _held(frame, boxes, (384, 128), quantize_uint8=quantize, **MAIN_KW)
+
+
+def test_k1_witness_boxes_exact(cuda):
+    """Boxes beyond +-2**31, where K1's 32-bit float -> int conversion once
+    parted from the plain version's floor -> int64 -> int32: the two lost
+    tracks' Kalman boxes that cropped 55-72 levels off on a served
+    896x1600 canvas (both crop to their pad mean), one whose left edge
+    wraps to a positive int32, boxes across and past the frame at +-5e9
+    and +-1e12, and one starting past 2**31 (empty)."""
+    rng = np.random.RandomState(14)
+    frame = torch.from_numpy(
+        rng.randint(0, 256, (896, 1600, 3), dtype=np.uint8)).to(cuda)
+    boxes = torch.tensor(WITNESS_BOXES.tolist() + [
+        [-3e9, 100.0, 400.5, 300.5],
+        [-5e9, -5e9, 5e9, 5e9],
+        [-1e12, 500.5, 1e12, 700.5],
+        [2.2e9, 100.0, 2.3e9, 300.0],
+        [100.5, -1e12, 300.5, 1e12],
     ], dtype=torch.float32, device=cuda)
     for quantize in (True, False):
         _held(frame, boxes, (384, 128), quantize_uint8=quantize, **MAIN_KW)
